@@ -12,10 +12,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 import feinsum_tpu as f
+
+f.enable_persistent_compilation_cache()
 
 E, ndof, nf, nfdof = 100_000, 35, 4, 15
 rng = np.random.default_rng(0)

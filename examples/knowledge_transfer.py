@@ -4,14 +4,12 @@ doc/compiler_writer_tutorial.rst + test_loopy_utils.py:145-173) — including
 a user function that computes a SUM of einsums (``2*div(u) - lift(flux)``),
 where ``insn_match`` selects the instruction to transform (reference parity:
 the loopy ``insn_match`` filter, loopy_utils/__init__.py:233-254)."""
-import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 import feinsum_tpu as f
+
+f.enable_persistent_compilation_cache()
 from feinsum_tpu.matching import (
     get_a_matched_einsum,
     get_matched_einsums,

@@ -2,7 +2,7 @@
 (the cross-product einsum family; reference class
 ``re_rji_ej_to_ei_3d_cross_product_v0``).
 
-Runs anywhere (CPU included — Pallas interpret mode engages off-TPU):
+Runs on the GPU, and on the CPU with Pallas in interpret mode:
 
     python examples/maxwell_3d.py
 """
@@ -15,11 +15,10 @@ from feinsum_tpu.models import MaxwellOperator3D, make_maxwell_state
 
 
 def main():
-    on_tpu = jax.devices()[0].platform == "tpu"
-    # interpret-mode Pallas off-TPU is an emulator: keep the demo tiny there
-    n_elements, ndof, dt = (65536, 35, 1e-3) if on_tpu else (256, 10, 1e-3)
-    op = MaxwellOperator3D(ndof=ndof, block_long=1024 if on_tpu else 64,
-                           db_path=None)   # None: built-in default schedule
+    on_gpu = jax.devices()[0].platform == "gpu"
+    # interpret-mode Pallas on the CPU is an emulator: keep the demo tiny
+    n_elements, ndof, dt = (65536, 35, 1e-3) if on_gpu else (256, 10, 1e-3)
+    op = MaxwellOperator3D(ndof=ndof, db_path=None)   # built-in schedule
     step = jax.jit(op.make_step(n_elements, dt=dt))
     state, geom = make_maxwell_state(n_elements, ndof=ndof)
 

@@ -1,6 +1,7 @@
 """Full 3D wave operator at P4 with DB-driven schedules (reference:
 examples/wave_3d_p4_auto.py): every einsum in the step consults the transform
 archive for the best recorded schedule on this device."""
+import sys
 import time
 
 import jax
@@ -8,7 +9,9 @@ import jax
 from feinsum_tpu import sql_utils
 from feinsum_tpu.models import WaveOperator3D, make_wave_state
 
-N_ELEMENTS = 500_000 if jax.devices()[0].platform == "tpu" else 2_000
+# the streaming regime on the GPU; pass a small count on the CPU, where
+# Pallas runs in its interpreter
+N_ELEMENTS = int(sys.argv[1]) if len(sys.argv) > 1 else 1_000_000
 
 if __name__ == "__main__":
     op = WaveOperator3D(ndof=35, nfacedof=15, dtype="float32",

@@ -1,12 +1,13 @@
 """
-feinsum_tpu — a TPU-native batched-einsum transform-database library.
+feinsum_tpu — a batched-einsum transform-database library for NVIDIA GPUs.
 
 Rebuild of kaushikcfd/feinsum's capabilities on an idiomatic JAX/Pallas/XLA
 stack: an immutable :class:`BatchedEinsum` IR with parametric axes, canonical-
 form hashing (first-party C++ graph canonicalizer) for database lookup,
-schedule descriptors as *data* interpreted by a Pallas emitter, an empirical
-validate→time→record autotuning loop persisted to sqlite, and roofline-relative
-reporting against TPU MXU-peak / HBM-bandwidth tables.
+schedule descriptors as *data* interpreted by a Pallas emitter (compiled
+through Triton), an empirical validate→time→record autotuning loop persisted
+to sqlite, and roofline-relative reporting against the device's peak-flop /
+HBM-bandwidth table.
 """
 
 from .algebraic import (

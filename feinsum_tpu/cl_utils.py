@@ -18,7 +18,7 @@ class DeviceT(Protocol):
 @dataclass(frozen=True)
 class FakeDevice:
     """Query the transform archive for a device you don't have, e.g.
-    ``FakeDevice("TPU v5 lite")``."""
+    ``FakeDevice("NVIDIA H100 80GB HBM3")``."""
 
     name: str
 

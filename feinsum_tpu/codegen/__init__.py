@@ -2,15 +2,16 @@
 Lowering: (BatchedEinsum, ContractionSchedule, ScheduleDescriptor) -> compiled
 JAX executable.
 
-This is the TPU replacement of the reference's loopy codegen
+This replaces the reference's loopy codegen
 (``feinsum/codegen/loopy.py:113-339``).  Where the reference emits a loopy
 kernel and *then* mutates it with imperative transform scripts, here the
 schedule descriptor is pure data interpreted by two backends:
 
-* ``xla``   — each schedule step becomes a ``jnp.einsum``; XLA fuses and MXU-
+* ``xla``   — each schedule step becomes a ``jnp.einsum``; XLA fuses and
               tiles.  Always available; the CI/CPU oracle path.
 * ``pallas`` — a fused kernel gridded over the parametric (long) axis with all
-              schedule steps computed per-block in VMEM (``pallas_emitter``).
+              schedule steps computed per block on chip, compiled through
+              Triton on a GPU (``pallas_emitter``).
 """
 
 from .descriptor import ScheduleDescriptor

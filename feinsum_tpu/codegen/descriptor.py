@@ -1,9 +1,9 @@
 """
-Schedule descriptors: TPU schedules as *data*.
+Schedule descriptors: device schedules as *data*.
 
 The reference records transforms as (impl-module id, parameter values) where
 the impl replays imperative loopy verbs (split_iname/precompute/...,
-SURVEY.md §2.2).  The TPU-native equivalent is a declarative descriptor
+SURVEY.md §2.2).  The equivalent here is a declarative descriptor
 interpreted by the emitters; the tuning impls' job is to *produce* good
 descriptors for their einsum family.
 """
@@ -25,44 +25,40 @@ class ScheduleDescriptor:
     """How to lower a batched-einsum program onto the device.
 
     :attr backend: ``"xla"`` (jnp.einsum per step, XLA fusion) or ``"pallas"``
-        (fused single kernel gridded over :attr:`grid_index`).
+        (one fused kernel gridded over :attr:`grid_index`, compiled through
+        Triton on a GPU and interpreted on the CPU).
     :attr grid_index: index letter the Pallas grid iterates over — normally
         the parametric "long" axis (DG element axis).  ``None`` = choose
-        automatically (the unique SizeParam axis if any).  A TUPLE of
-        concrete output letters instead selects the multi-axis grid path
-        for dense tensor contractions (one grid cell per combination; each
-        cell computes and stores its output slice in place — the
-        COGENT-analog first-party TC kernel).
-    :attr block_long: elements of the long axis processed per grid step.
+        automatically (the unique SizeParam axis if any).
+    :attr block_long: elements of the long axis processed per program
+        (rounded up to a power of two in-kernel).
+    :attr num_warps: Triton warps per program.
+    :attr num_stages: Triton software-pipelining stages.
     :attr accum_dtype: accumulation dtype for contractions (e.g. "float32"
         for bf16 inputs); ``None`` = operand dtype.
-    :attr compute_dtype: cast operands to this dtype before contracting
-        (e.g. "bfloat16" to engage the native MXU path); ``None`` = as-is.
+    :attr compute_dtype: cast operands to this dtype before contracting;
+        ``None`` = as-is.
     :attr arg_layouts: per-arg axis permutation applied to the HBM layout,
         as a tuple of ``(arg_name, perm_tuple)``.  The executable then
         expects the argument pre-transposed — layout choice is part of the
         schedule, like the reference's TTGT transposes.
-    :attr precision: jax matmul precision ("default" | "float32" | "highest"
-        | "bfloat16_3x" ...), applied to XLA-backend dots.
-    :attr dimension_semantics: Mosaic grid annotation ("parallel" /
-        "arbitrary") for the long-axis grid.
-    :attr vmem_limit_bytes: cap for the Mosaic compiler.
-    :attr interpret: force Pallas interpret mode (None = auto on non-TPU).
+    :attr precision: dot precision: "highest" (IEEE f32 for f32 data),
+        "tf32_3x" / "bf16_3x" (3-pass split products on the tensor cores),
+        "fastest" (single-pass), or an XLA dot-algorithm preset name (XLA
+        backend).  "default" is "highest" on the XLA backend and "bf16_3x"
+        in the Pallas kernel (see ops/pallas_emitter._dot_precision).
+    :attr interpret: force Pallas interpret mode (the CPU always
+        interprets).
     :attr multiple_results_in_one_kernel: evaluate all batch rows inside one
-        pallas_call (shares operand DMA between rows) vs one call per row.
+        pallas_call (shares operand loads between rows) vs one call per row.
     """
 
     backend: str = "xla"
     # host-side storage contract applied BEFORE everything else: per-arg
     # nested axis grouping ((name, ((2,0),(1,3))), ...) — the stored array is
-    # transpose(flat_perm) reshaped to one axis per group.  This is how
-    # high-rank small-dim tensors become GEMM-natural 2D matrices: every
-    # permutation of e.g. a (24,16,16,24,16,16) TCCG output has a trailing
-    # dim <= 24, which XLA:TPU's T(8,128) tiled layout pads to 128 lanes
-    # (5-8x physical write amplification — measured 43 GB/s logical on
-    # tccg_35 vs 652 GB/s for the same GEMM stored 2D).  Fused storage is
-    # the only bus-rate layout for such tensors on TPU; like arg_layouts,
-    # it is part of the schedule's data-layout contract.
+    # transpose(flat_perm) reshaped to one axis per group, e.g. a high-rank
+    # small-dim TC operand stored as a GEMM-natural 2D matrix.  Like
+    # arg_layouts, it is part of the schedule's data-layout contract.
     pre_layouts: tuple = ()
     pre_out_layout: Optional[tuple] = None  # nested grouping for every output
     # explicit index->length bindings for axes of a REWRITTEN program whose
@@ -70,97 +66,50 @@ class ScheduleDescriptor:
     # a TC-as-GEMM rewrite) rather than by the caller's long_dim_length
     bind_lengths: tuple = ()
     grid_index: Optional[str] = None
-    # multi-axis grids only: per-grid-letter block sizes ((letter, blk), ...)
-    # — a grid cell covers *blk* consecutive indices of the letter instead of
-    # 1 (grid dim = length // blk; divisibility required).  Unlisted grid
-    # letters keep block 1.
-    grid_blocks: tuple = ()
-    # multi-axis grids only: an output letter (a blocked grid letter or a
-    # non-gridded one) routed to the kernel lowering as the MXU "row" (M)
-    # axis.  Without it every in-cell contraction lowers to VPU
-    # broadcast-sums — the root cause of tc_pallas_v0's 12-30x loss on the
-    # TCCG shapes (the lowering only emits dot_general when a row-axis piece
-    # exists).  None preserves v0 replay semantics exactly.
-    grid_m: Optional[str] = None
-    # stack unrolled output slices into the MXU M dimension before the dot
-    # (multi-axis grids; see kernel_lowering.lower_step mstack docs) — the
-    # analog of mfold for STREAMED factors: tccg_05's 72 per-b dots of M=72
-    # become one M=5184 dot, amortizing the M-tile fill.
-    mstack: bool = False
-    block_long: int = 1024
+    block_long: int = 256
+    num_warps: int = 4
+    num_stages: int = 2
     accum_dtype: Optional[str] = None
     compute_dtype: Optional[str] = None
     arg_layouts: tuple = ()
     out_layout: Optional[tuple] = None   # axis perm applied to every output
-    flatten: bool = False                # 1D-stream pure-elementwise programs
-    # fold the trailing long axis E -> (fold_long, E/fold_long) in HBM so the
-    # sublane dim is exactly the f32 tile height (8): a dof-major (35, E)
-    # array tiles to 40 sublane rows (12.5% wasted HBM traffic), while
-    # (35, 8, E/8) tiles exactly; kernels view blocks as (35, 8*blk) for the
-    # MXU (a free view: sublane tiles group rows in 8s).  Measured on v5e:
-    # streaming 600 -> 691 GB/s (scripts/tpu_fold_probe*.py).  Requires
-    # dof-major storage (the long axis trailing on every operand/output that
-    # carries it) and E % fold_long == 0.
+    # fold the trailing long axis E -> (fold_long, E/fold_long) in storage
+    # (a free view of the dof-major buffer).  Requires dof-major storage
+    # (the long axis trailing on every operand/output that carries it) and
+    # E % fold_long == 0.
     fold_long: int = 1
-    # store the named args pre-blocked tile-exactly: (nb, *small_axes, 8,
-    # blk_c) — block g holds elements [g*B, (g+1)*B) laid out (8, blk_c)
-    # row-major, so arrays whose non-long axes are tiny (DG Jacobians (3,E):
-    # 3 sublanes pad to 8 = 2.67x DMA waste) stream with zero padding.  The
-    # in-kernel cost is one J-sized reshape (fold_long==1) or nothing (the
-    # folded per-plane slice comes straight off the pre-blocked block).
-    # Unlike fold_long this composes with unfolded streaming of the big
-    # operands, because each pre-blocked block covers the same contiguous
-    # element range as the unfolded blocks.
+    # store the named args pre-blocked: (nb, *small_axes, 8, blk_c) — block
+    # g holds elements [g*B, (g+1)*B) laid out (8, blk_c) row-major (see
+    # ops/layouts.preblock_arrays).  The pallas backend unpacks them to
+    # dof-major before its kernel.
     preblock_args: tuple = ()
     precision: str = "default"
-    dimension_semantics: str = "arbitrary"
     # evaluate schedule steps whose inputs are all resident (no long-axis
     # operand, transitively) in XLA outside the kernel, once per launch,
-    # and feed the result to Pallas as a raw VMEM-resident block.  In-kernel
-    # resident steps are doubly bad: they recompute per grid step, and a
-    # Mosaic dot whose RESIDENT side is a computed intermediate runs ~5x
-    # slower than from a raw block (measured: curl prereduce 9.6 ms
-    # in-kernel vs 1.7 ms trivial; see CLAUDE.md).  Default on; the knob
-    # exists for A/B measurement.
+    # and feed the result to the kernel as a resident operand instead of
+    # recomputing it in every program.
     hoist_resident_steps: bool = True
-    # pack an unrolled output axis carried by a 2D resident factor into the
-    # MXU M dimension (8-aligned pad + stack; see kernel_lowering.lower_step
-    # docstring) — e.g. grad's 3 r-dots of M=35 become one dot of M=120,
-    # 3x fewer MXU tile passes
-    mfold: bool = False
-    # lane-pack rewrite contract (the small-dof matvec-class answer to the
-    # reference's n_e_per_wg element packing, tuning/impls/
-    # xre_rij_xej_to_ei_v4.py:41-114): the program's einsum is REWRITTEN so
-    # g consecutive elements share one dof axis — u (E, d) is stored
-    # (E/g, g*d) (a free reshape of the row-major buffer), the resident
-    # matrix becomes the block-diagonal kron(I_g, D) (computed in-graph,
-    # once per launch), and the output is delivered packed (E/g, g*d_out).
-    # The MXU then runs ONE dense (B, g*d)x(g*d, g*d) dot per block instead
-    # of B/d-sparse tiles: at d=20, g=32 the K/N fill rises 6.4x and the
-    # per-block fixed overhead amortizes over g x more elements.
+    # lane-pack rewrite contract (the small-dof answer to the reference's
+    # n_e_per_wg element packing, tuning/impls/xre_rij_xej_to_ei_v4.py:
+    # 41-114): the program's einsum is REWRITTEN so g consecutive elements
+    # share one dof axis — u (E, d) is stored (E/g, g*d) (a free reshape of
+    # the row-major buffer), the resident matrix becomes the block-diagonal
+    # kron(I_g, D) (computed in-graph, once per launch), and the output is
+    # delivered packed (E/g, g*d_out).
     # ``lane_pack`` = g; ``lane_pack_args`` = streamed operand names stored
     # packed host-side; ``kron_args`` = resident names kron-expanded
     # in-graph.  SizeParam axis lengths are divided by g at build time.
-    #
-    # DG-family generalization (reference n_e_per_wg at P1/P2,
-    # xre_rij_xej_to_ei_v4.py:41-114): classes with a SECOND streamed
-    # factor (div's J (E,s), grad's J (3,3,E), face's F (4,E)) pack too.
     # ``lane_pack_args`` entries may be ``(name, n_lead)``: the long axis
     # sits after *n_lead* leading axes and packing reshapes
-    # (lead..., E, rest...) -> (lead..., E/g, g*prod(rest)) — still a free
-    # view of the row-major buffer (plain str entries = n_lead 0).
+    # (lead..., E, rest...) -> (lead..., E/g, g*prod(rest)).
     # ``kron_args`` entries may be ``(name, perm)``: the resident is
     # transposed by *perm* first, then kron-expanded over its LAST TWO axes
     # batched over the leading ones (T[m] = kron(I_g, R[m])).
     # ``lane_pack_expand`` synthesizes the 0/1 lane-expansion matrices the
-    # packed J factor contracts against (a tiny in-graph constant, like the
-    # kron residents): entries ``(name, "P", g, d, dtype)`` make
-    # P[a, f*d+k] = (a==f) of shape (g, g*d); ``(name, "A", g, s, d,
-    # dtype)`` make A[t, a*s+u, f*d+k] = (a==f)(u==t) of shape
-    # (s, g*s, g*d).  W = J_packed @ P broadcasts each element's scale
-    # across its d output lanes with one raw-block MXU dot — no lane
-    # reshape (unprobed relayout) and no strided lane slicing (a known
-    # Mosaic crash class).
+    # packed scale factor contracts against: entries ``(name, "P", g, d,
+    # dtype)`` make P[a, f*d+k] = (a==f) of shape (g, g*d); ``(name, "A", g,
+    # s, d, dtype)`` make A[t, a*s+u, f*d+k] = (a==f)(u==t) of shape
+    # (s, g*s, g*d).
     lane_pack: int = 1
     lane_pack_args: tuple = ()
     kron_args: tuple = ()
@@ -169,27 +118,16 @@ class ScheduleDescriptor:
     # resident operand): the b rows' streamed operands are stored stacked
     # along the long axis ((b, E, ...) -> (b*E, ...), free for row-major
     # buffers via rowcat_args name groups) and the program becomes a
-    # SINGLE row over a b*E-long axis — identical traffic and MXU work,
-    # 1/b the grid steps, so per-block fixed overhead (the small-ndof
-    # P1/P2 tax) amortizes b-fold.  The single output is the b row
+    # SINGLE row over a b*E-long axis.  The single output is the b row
     # outputs concatenated along the long axis.  SizeParam lengths are
     # multiplied by b at build time.
     rowcat: int = 1
     rowcat_args: tuple = ()   # ((stacked_name, (row0_name, row1_name...)),)
-    # double-double storage contract (pallas backend, f64 einsums): every
-    # f64 operand is stored as a (2, ...) f32 [hi, lo] pair and the kernel
-    # runs error-free-transformation arithmetic on the VPU (no f64 types
-    # reach Mosaic); outputs come back as pairs.  See ops/dd_emitter.py —
-    # the first-party answer to XLA's HBM-thrashing f64 emulation.
-    dd_pairs: bool = False
     # XLA route only: split the long (SizeParam) axis into chunks of this
-    # many elements and lax.map the whole schedule over them sequentially.
-    # This bounds the *intermediate* footprint — XLA's f64 emulation
-    # decomposes every value into padded f32-pair temps (div @ E=1M wants
-    # ~29 GB materialized, which thrashes HBM at ~6 GOp/s); chunking keeps
-    # the per-chunk temps resident.  None = one launch over the full axis.
+    # many elements and lax.map the whole schedule over them sequentially,
+    # bounding the intermediate footprint.  None = one launch over the
+    # full axis.
     xla_block_long: Optional[int] = None
-    vmem_limit_bytes: Optional[int] = None
     interpret: Optional[bool] = None
     multiple_results_in_one_kernel: bool = True
     flags: tuple = field(default_factory=tuple)
@@ -197,8 +135,6 @@ class ScheduleDescriptor:
     def __post_init__(self):
         object.__setattr__(self, "arg_layouts",
                            _freeze_mapping(self.arg_layouts))
-        object.__setattr__(self, "grid_blocks",
-                           _freeze_mapping(self.grid_blocks))
         object.__setattr__(self, "pre_layouts",
                            _freeze_mapping(self.pre_layouts))
         object.__setattr__(self, "bind_lengths",

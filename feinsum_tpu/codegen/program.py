@@ -87,12 +87,18 @@ def output_dtype(einsum: BatchedEinsum, row: int) -> np.dtype:
     return np.result_type(*[arg.dtype for arg in einsum.args[row]])
 
 
+_SPLIT_PRESETS = {"bf16_3x": "BF16_BF16_F32_X3",
+                  "tf32_3x": "TF32_TF32_F32_X3"}
+
+
 def _precision(name: str, eff_itemsize: int = 4):
     """Map a descriptor precision name to a jax dot precision.  "default" on
-    >=32-bit floats resolves to HIGHEST — the same safe default as the
-    Pallas emitter — because a plain f32 dot lowers to a 1-pass bf16 MXU
-    pass on TPU and fails the validation oracle.  "fastest" keeps the
-    single-pass path."""
+    >=32-bit floats resolves to HIGHEST (IEEE f32 / f64) — the same safe
+    default as the Pallas emitter — because a plain f32 dot may run as
+    single-pass TF32 on the GPU and fail the validation oracle.
+    "fastest" keeps the single-pass path.  "bf16_3x" / "tf32_3x" name the
+    3-pass split algorithms explicitly (XLA's CPU backend has none and runs
+    them at HIGHEST)."""
     import jax
     lowered = (name or "default").lower()
     if lowered == "default":
@@ -101,11 +107,19 @@ def _precision(name: str, eff_itemsize: int = 4):
         return None
     if lowered in ("high", "highest"):
         return getattr(jax.lax.Precision, lowered.upper())
-    if lowered == "bf16_3x":
-        # same descriptor vocabulary as the Pallas emitter: a 3-pass
-        # split-bfloat16 dot (XLA runs it natively in the MXU pipeline)
-        return "bfloat16_3x"
+    if lowered in _SPLIT_PRESETS:
+        if jax.default_backend() == "cpu":
+            return jax.lax.Precision.HIGHEST
+        return getattr(jax.lax.DotAlgorithmPreset, _SPLIT_PRESETS[lowered])
     return name  # dot-algorithm preset string, passed through
+
+
+def default_compilation_cache_dir() -> str:
+    """``<checkout>/.jax_cache``: a fixed path inside the checkout (the
+    path is part of the cache key, so it must not move between runs)."""
+    import os
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
 
 
 def enable_persistent_compilation_cache(directory: Optional[str] = None
@@ -113,12 +127,16 @@ def enable_persistent_compilation_cache(directory: Optional[str] = None
     """Persist compiled executables across processes so a DB-hit replay after
     the first-ever compile is a cache lookup (the reference's "<10 ms
     hit→codegen" budget, SURVEY.md §7.6; jit-level caching handles repeats
-    within a process)."""
+    within a process).  Where ``JAX_COMPILATION_CACHE_DIR`` is set JAX
+    already caches there and no other directory is set; otherwise the
+    cache goes to *directory* or :func:`default_compilation_cache_dir`."""
     import os
 
     import jax
-    directory = directory or os.path.join(
-        os.path.expanduser("~"), ".cache", "feinsum_tpu_xla")
+    if directory is None:
+        if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+            return
+        directory = default_compilation_cache_dir()
     os.makedirs(directory, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", directory)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)

@@ -7,10 +7,11 @@ earlier intermediates).  The trivial schedule has one step; the opt_einsum
 schedule follows the optimal contraction path with parametric dims treated as
 very long (reference: ``feinsum/contraction_schedule.py:62-178``).
 
-On TPU the schedule doubles as the *algebraic hoist* mechanism: the 4.14x
-flop cut of the reference's ``hoist_invariant_multiplicative_terms_in_sum_
+The schedule doubles as the *algebraic hoist* mechanism: the 4.14x flop
+cut of the reference's ``hoist_invariant_multiplicative_terms_in_sum_
 reduction`` falls out of choosing a multi-step schedule, and the Pallas
-emitter fuses all steps in VMEM (no HBM round-trip for intermediates).
+emitter fuses all steps in one kernel (no HBM round-trip for
+intermediates).
 """
 
 from __future__ import annotations

@@ -1,10 +1,9 @@
 """Static physics-floor audit: flag archive rows whose recorded GOp rate
 beats the HBM bandwidth bound (logical bytes / peak bus) — impossible on
-the hardware, i.e. a timing-instrument artifact (the historical wall-diff
-under-reporting class; see measure.timeit_on_device's protocol notes).
+the hardware, i.e. a timing-instrument artifact.
 
 Usage: python -m feinsum_tpu.data.bin.audit_floor [--db PATH]
-       [--device "TPU v5 lite"] [--slack 1.02]
+       [--device "NVIDIA H100 80GB HBM3"] [--slack 1.02]
 
 Exit code 1 when violations exist (CI-able).  Complements the re-timing
 based retire tools (retire_rows / reevaluate_best_k): this one is
@@ -35,7 +34,7 @@ from feinsum_tpu.measure import (  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--db", default=None)
-    ap.add_argument("--device", default="TPU v5 lite")
+    ap.add_argument("--device", default="NVIDIA H100 80GB HBM3")
     ap.add_argument("--slack", type=float, default=1.02)
     args = ap.parse_args()
 

@@ -5,15 +5,16 @@ the same FEINSUM_TIMING_FACTS column set, and both key rows on the
 *canonicalized* einsum — so the einsum identity carries over directly.  What
 does NOT carry over is the transform itself: the reference's
 ``transform_id``/``transform_params`` name loopy transform scripts tuned for
-an OpenCL device, which have no meaning on TPU.
+an OpenCL device, which have no meaning for this library's emitters.
 
 This tool therefore migrates the *tuning knowledge worth keeping*:
 
 * ``--list`` (default): show every distinct canonical einsum in the source
   archive with its best recorded rate, so you can see what you had tuned.
-* ``--retune``: autotune each migrated einsum class against the matching TPU
-  schedule space (chosen by einsum shape) and record fresh facts into the
-  destination archive — the switcher's path from a reference DB to a TPU DB.
+* ``--retune``: autotune each migrated einsum class against the matching
+  schedule space (chosen by einsum shape) on the current device and record
+  fresh facts into the destination archive — the switcher's path from a
+  reference DB to one for this library.
 
 Rows whose einsums cannot be reconstructed (e.g. impl-specific dtypes we
 don't support) are reported and skipped.
@@ -58,7 +59,7 @@ def _reconstruct(subscripts, index_to_length, args, arg_to_dtype):
 
 
 def _pick_space(einsum) -> str:
-    """Best-guess TPU schedule space for a migrated einsum class."""
+    """Best-guess schedule space for a migrated einsum class."""
     if einsum.sum_indices and einsum.n == 2 and not einsum.all_size_params:
         return "tc_xla_v0"
     if not einsum.sum_indices:

@@ -13,10 +13,9 @@ def main() -> None:
     ap.add_argument("-k", type=int, default=3)
     ap.add_argument("--long-dim-length", type=int, default=1_000_000)
     ap.add_argument("--skip-dtypes", default="",
-                    help="comma-separated dtypes to skip (e.g. 'float64':"
-                         " its emulation compiles poison the remote compile"
-                         " helpers — re-time those rows in a separate last"
-                         " pass; see CLAUDE.md)")
+                    help="comma-separated dtypes to skip (e.g."
+                         " 'float64', to re-time those rows in a separate"
+                         " pass)")
     ap.add_argument("--only-subscripts", default=None,
                     help="restrict to one canonical subscripts string")
     args = ap.parse_args()

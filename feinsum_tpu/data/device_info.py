@@ -2,50 +2,28 @@
 Static per-device peak tables for roofline modeling
 (parity: reference ``feinsum/data/device_info.py:5-26``).
 
-TPU entries are per-chip numbers.  Matmul peaks for non-native dtypes on TPU
-(fp32 runs as multi-pass bf16 on the MXU under the default XLA precision
-config) are derated from the bf16 MXU peak; entries marked "measured" were
-calibrated with microbenchmarks on the actual hardware (see
-``feinsum_tpu/measure.py:calibrate_device_peaks``).  GPU entries mirror the
-reference's table so archived reference facts remain interpretable.
+Keys are :func:`sanitize_device_name` of the device kind JAX reports.  The
+NVIDIA H100 row is the card this system runs on; the TITAN V, GTX 1650 and
+H200 NVL rows mirror the reference's table so its archived facts remain
+interpretable.  A device not in the tables is an error wherever a peak is
+needed, never a default.
 """
 
 from __future__ import annotations
 
 # peak GFLOP/s by dtype
 DEV_TO_PEAK_GFLOPS = {
-    # --- TPU generations (per chip) ---
-    "TPU_v4": {
-        "bfloat16": 275_000.0,
-        "float32": 91_700.0,   # bf16/3 (3-pass split-bf16, oracle-passing)
-        "float64": 4_300.0,
-    },
-    "TPU_v5_lite": {  # v5e; bf16 from spec.  float32 = the 3-pass split-
-        # bf16 ceiling (197/3 = 65.7 TF): both XLA's BF16_BF16_F32_X3 dot
-        # algorithm and our manual bf16_3x pass the f32 validation oracle
-        # (~2^-21 relative), and a 5136^3 GEMM measured 62.6 TF = 95% of it
-        # (bench r2, tccg_12) — so 3-pass, not 6-pass HIGHEST (31.3 TF
-        # measured), is the honest f32 peak.  Default-precision 1-pass bf16
-        # (~156 TF measured) fails the oracle and does not count.
-        "bfloat16": 197_000.0,
-        "float32": 65_700.0,
-        # no f64 hardware: XLA emulates doubles in f32-pair arithmetic.
-        # MEASURED matmul ceiling 1.77 TF (1024^3, scripts/tpu_f64_probe.py);
-        # the old 3.9 TF entry was spec-derived fantasy.  Beware: f64
-        # einsums with >2 operands can blow up in 4.9x-padded emulation
-        # temps (div @ E=1M wants 28.9 GB of HBM decomposed) — see
-        # CLAUDE.md round-2 findings.
-        "float64": 1_770.0,
-    },
-    "TPU_v5": {  # v5p
-        "bfloat16": 459_000.0,
-        "float32": 153_000.0,  # bf16/3
-        "float64": 7_200.0,
-    },
-    "TPU_v6_lite": {  # Trillium / v6e
-        "bfloat16": 918_000.0,
-        "float32": 306_000.0,  # bf16/3
-        "float64": 14_300.0,
+    # NVIDIA H100 SXM5 data sheet, dense rates.  float64 67 TF is the
+    # tensor-core (DMMA) rate, 34 TF outside them; float32 67 TF is the
+    # CUDA-core rate (IEEE fp32), tfloat32 495 TF the tensor cores' TF32.
+    "NVIDIA_H100_80GB_HBM3": {
+        "float64": 67_000.0,
+        "float32": 67_000.0,
+        "tfloat32": 495_000.0,
+        "bfloat16": 989_000.0,
+        "float16": 989_000.0,
+        "complex64": 67_000.0,
+        "complex128": 67_000.0,
     },
     # --- reference GPUs (from the reference's table) ---
     "NVIDIA_TITAN_V": {
@@ -66,37 +44,23 @@ DEV_TO_PEAK_GFLOPS = {
 
 # peak HBM bandwidth, GB/s
 DEV_TO_PEAK_BW = {
-    "TPU_v4": 1_228.0,
-    "TPU_v5_lite": 819.0,
-    "TPU_v5": 2_765.0,
-    "TPU_v6_lite": 1_640.0,
+    "NVIDIA_H100_80GB_HBM3": 3_350.0,     # H100 SXM5 data sheet
     "NVIDIA_TITAN_V": 652.8,
     "NVIDIA_GEFORCE_GTX_1650": 192.0,
     "NVIDIA_H200_NVL": 4_800.0,
 }
 
-# peak HBM *write-drain* bandwidth, GB/s — only for devices where it was
-# MEASURED: a pure streaming-store saturates below the mixed read+write bus
-# peak (v5e: 652 vs 819, scripts/tpu_stream_probe.py / tpu_tc2_probe.py).
-# Write-dominated kernels (expansion-heavy TCCG outputs) are bounded by
-# this, not the bus peak; the roofline model adds the term where known.
-DEV_TO_PEAK_WRITE_BW = {
-    "TPU_v5_lite": 652.0,
-}
-
-# VMEM per core, bytes (used by schedule-space guards, the TPU analog of the
-# reference impls' shared-memory-<=48kB InvalidParameterError guards)
-DEV_TO_VMEM_BYTES = {
-    "TPU_v4": 128 * 1024 * 1024,
-    "TPU_v5_lite": 128 * 1024 * 1024,
-    "TPU_v5": 128 * 1024 * 1024,
-    "TPU_v6_lite": 128 * 1024 * 1024,
-}
-DEFAULT_VMEM_BYTES = 64 * 1024 * 1024
+# Hopper per-block limits (H100 data sheet / Hopper tuning guide): the
+# shared memory one thread block may use, and the L2 cache size.  Schedule
+# spaces guard on the first; timing loops size their input rotation from
+# the second.
+SMEM_BYTES_PER_BLOCK = 227 * 1024
+L2_BYTES = 50 * 1024 * 1024
 
 
 def sanitize_device_name(name: str) -> str:
-    """'TPU v5 lite' -> 'TPU_v5_lite' (reference sql_utils.py:122-132)."""
+    """'NVIDIA H100 80GB HBM3' -> 'NVIDIA_H100_80GB_HBM3' (reference
+    sql_utils.py:122-132)."""
     return name.strip().replace(" ", "_").replace("-", "_")
 
 

@@ -18,7 +18,8 @@ EinsumTunitMatchError = EinsumMatchError
 
 class InvalidParameterError(FeinsumTPUError):
     """Raised by a transform when a tuning point lies in the declared parameter
-    space but is illegal for the target hardware (e.g. exceeds VMEM)."""
+    space but is illegal for the target hardware (e.g. exceeds the shared
+    memory of a block)."""
 
 
 class NoDevicePeaksInfoError(FeinsumTPUError):
@@ -32,3 +33,8 @@ class TransformValidationError(FeinsumTPUError):
 
 class NoFactInDatabaseError(FeinsumTPUError):
     """Raised when the transform archive contains no fact for a query."""
+
+
+class TimingBelowFloorError(FeinsumTPUError):
+    """Raised when a measured launch time is below the bandwidth floor of
+    the bytes it must move — a broken measurement, never a result."""

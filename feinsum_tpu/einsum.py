@@ -4,7 +4,7 @@ Core IR: immutable batched-einsum expressions.
 A :class:`BatchedEinsum` records ``b`` einsums that share one subscript string,
 each consuming ``n`` operand arrays.  Axis lengths may be concrete integers or
 symbolic :class:`SizeParam`\\ s ("infinitely long" axes, e.g. the element axis of a
-DG discretization) — the parametric axis is the one a TPU kernel grids over.
+DG discretization) — the parametric axis is the one a kernel grids over.
 
 Behavioral parity with the reference IR (``feinsum/einsum.py:27-387`` in
 kaushikcfd/feinsum): same public attributes/properties, fresh implementation.

@@ -1,7 +1,7 @@
 """
 Matcher: infer the :class:`BatchedEinsum` a JAX computation evaluates.
 
-The TPU-native analog of the reference's loopy-kernel matcher
+The JAX analog of the reference's loopy-kernel matcher
 (``feinsum/loopy_utils/__init__.py:202-506``): instead of pattern-matching a
 ``loopy.TranslationUnit`` against the einsum grammar, we trace a JAX callable
 to a jaxpr and run index-label unification over the primitives ``jnp.einsum``

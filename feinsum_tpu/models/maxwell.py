@@ -48,7 +48,7 @@ class MaxwellOperator3D:
     ``ndof`` volume dofs per field component."""
 
     def __init__(self, *, ndof: int = 35, dtype: str = "float32",
-                 use_pallas: bool = True, block_long: int = 4096,
+                 use_pallas: bool = True, block_long: int = 128,
                  db_path: Optional[str] = None, device=None) -> None:
         self.ndof = ndof
         self.dtype = np.dtype(dtype)

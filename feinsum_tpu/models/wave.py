@@ -19,7 +19,7 @@ random-input examples)
 Every einsum runs through the transform-database machinery: programs are
 built once, the archive is consulted for the best schedule on this device
 (falling back to sane defaults), and the whole step jits into fused Pallas
-kernels.
+kernels (or XLA programs, with ``use_pallas=False``).
 """
 
 from __future__ import annotations
@@ -41,11 +41,10 @@ from ..make_einsum import array, batched_einsum, einsum
 
 def _default_transform(program: EinsumProgram, *, use_pallas: bool,
                        block_long: int) -> EinsumProgram:
-    p = generate_program_with_opt_einsum_schedule(program.einsum)
     if use_pallas:
-        p = p.with_descriptor(backend="pallas", block_long=block_long,
-                              dimension_semantics="parallel")
-    return p
+        from ..tuning.impls._common import default_pallas_program
+        return default_pallas_program(program, block_long=block_long)
+    return generate_program_with_opt_einsum_schedule(program.einsum)
 
 
 class WaveOperator3D:
@@ -54,7 +53,7 @@ class WaveOperator3D:
 
     def __init__(self, *, ndof: int = 35, nfacedof: int = 15,
                  nfaces: int = 4, dtype: str = "float32",
-                 use_pallas: bool = True, block_long: int = 4096,
+                 use_pallas: bool = True, block_long: int = 128,
                  db_path: Optional[str] = None, device=None) -> None:
         self.ndof = ndof
         self.nfacedof = nfacedof
@@ -108,7 +107,7 @@ class WaveOperator3D:
             # archive's storage-layout choices (fold_long / preblock_args
             # describe how *that schedule* wants arrays stored in HBM; the
             # model's state contract is plain dof-major).  The algebraic
-            # schedule, backend, block size, and MXU precision carry over.
+            # schedule, backend, block size, and dot precision carry over.
             layouts, out_perm = dofmajor_layouts(e)
             program = program.with_descriptor(arg_layouts=layouts,
                                               out_layout=out_perm,

@@ -19,8 +19,7 @@ _LIBS: dict = {}
 
 
 def _cache_dir() -> Path:
-    d = Path(os.environ.get("FEINSUM_TPU_CACHE",
-                            Path.home() / ".cache" / "feinsum_tpu"))
+    d = _HERE / "_build"
     d.mkdir(parents=True, exist_ok=True)
     return d
 

@@ -1,1 +1,1 @@
-"""Pallas kernel emitters — the TPU compute path."""
+"""The Pallas kernel emitter (Triton on the GPU) and its storage layouts."""

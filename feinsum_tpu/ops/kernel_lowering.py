@@ -1,94 +1,117 @@
 """
-In-kernel lowering of schedule steps to Mosaic-friendly primitives.
+In-kernel lowering of schedule steps to the primitives Pallas lowers
+through Triton.
 
-Mosaic (the Pallas TPU compiler) reliably supports 2D ``dot_general`` with
-arbitrary single contracting dims, elementwise/broadcast VPU ops up to 4D,
-static slicing, and axis reductions — but NOT the general batched/multi-dim
-dot_generals that ``jnp.einsum`` emits (verified empirically on TPU v5e).
+Triton tensors are at most a few dimensions, have power-of-two extents, and
+cannot be sliced once loaded; its matrix product is a 2D ``dot`` whose
+operands are at least 16 along every dimension.  So each step of a
+contraction schedule is lowered with every tensor-in-flight represented as
+a :class:`Rep`:
 
-So each step of a contraction schedule is lowered with every tensor-in-flight
-represented as a :class:`Rep`:
-
-  * ``big``  — at most two "vector" axes kept as array dims: the long/grid
-               axis ``e`` (rows/sublanes) and one lane axis;
-  * ``small``— all other (tiny, static) axes unrolled into a dict of slices.
+  * ``big``  — at most two axes kept as tensor dimensions: the long (grid)
+               axis ``e`` and one dof axis, each padded to a power of two
+               (the padding holds zeros);
+  * ``small``— all other (tiny, static) axes unrolled into a dict of tiles.
 
 A step then becomes, per combination of unrolled indices:
-  * an MXU 2D dot over one chosen contraction axis ``k`` when the factor
+  * a 2D ``dot`` over one chosen contraction axis ``k`` when the factor
     pieces split into an (e,k) side and a (k,n) side,
-  * otherwise VPU broadcast-products and axis-sums (e.g. reductions over the
+  * otherwise broadcast-products and axis-sums (e.g. reductions over the
     long axis, or tiny contracted axes folded into unrolled sums).
 
-This is the TPU analog of the reference's loop-nest transforms: the grid is
-``split_iname(e)``; ``big`` lanes are the vectorized inames; ``small`` axes
-are ``unr``-tagged unrolled inames; VMEM residency of constant-index blocks
-is ``add_prefetch`` (cf. tuning/impls/xre_rij_xej_to_ei_v4.py steps 0-9).
+Raw operands carry a ``source`` that reloads them from memory with a
+different split of big and small axes; a schedule that would re-split a
+computed tile is refused.  This is the analog of the reference's
+loop-nest transforms: the grid is ``split_iname(e)``; ``big`` axes are the
+vectorized inames; ``small`` axes are ``unr``-tagged unrolled inames
+(cf. tuning/impls/xre_rij_xej_to_ei_v4.py steps 0-9).
 """
 
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass
+from typing import Callable, Optional
 
 from ..diagnostics import InvalidParameterError
 
 MAX_UNROLL_COMBOS = 1024
+MIN_TILE = 16
+
+
+def padded_length(n: int) -> int:
+    """In-kernel extent of an axis of length *n*: the next power of two,
+    and at least :data:`MIN_TILE` (Triton's smallest ``dot`` operand)."""
+    p = MIN_TILE
+    while p < n:
+        p *= 2
+    return p
 
 
 @dataclass
 class Rep:
     """A tensor-in-flight: ``data[key]`` has dims ``big`` (order meaningful),
-    keyed by the values of the ``small`` axes."""
+    keyed by the values of the ``small`` axes.  ``source(big)`` reloads a
+    raw operand with the given big axes (``None`` for computed values)."""
 
     small: tuple
     big: tuple
     data: dict
+    source: Optional[Callable] = None
 
     def rename(self, mapping: dict) -> "Rep":
+        source = None
+        if self.source is not None:
+            inv = {v: k for k, v in mapping.items()}
+            base = self.source
+
+            def source(big):
+                return base(tuple(inv[l] for l in big)).rename(mapping)
         return Rep(tuple(mapping[l] for l in self.small),
                    tuple(mapping[l] for l in self.big),
-                   self.data)
+                   self.data, source)
 
     def get(self, combo: dict):
         return self.data[tuple(combo[l] for l in self.small)]
 
 
-def rep_from_block(block, letters, e_letter, lengths) -> Rep:
-    """Decompose a loaded (<=4D) VMEM block into a Rep: the long axis and the
-    last non-long axis stay as array dims, everything else is unrolled."""
+def default_big(letters, e_letter) -> tuple:
+    """The long axis and the last other axis stay tensor dims (at most two
+    in all); everything else unrolls."""
+    letters = tuple(letters)
+    big_set = set()
+    if e_letter in letters:
+        big_set.add(e_letter)
+    for l in reversed([l for l in letters if l != e_letter]):
+        if len(big_set) >= 2:
+            break
+        big_set.add(l)
+    return tuple(l for l in letters if l in big_set)
+
+
+def rep_from_loader(letters, big, lengths, load_piece) -> Rep:
+    """Rep of a raw operand with stored axes *letters*: ``load_piece(big,
+    combo)`` loads one tile (dims = *big* in stored order) for the small
+    axes' values in *combo*."""
     letters = tuple(letters)
     if len(set(letters)) != len(letters):
         raise InvalidParameterError(
             f"repeated index within one operand ({letters}) is not supported"
             " by the pallas backend")
-    big_set = set()
-    if e_letter in letters:
-        big_set.add(e_letter)
-    non_e = [l for l in letters if l != e_letter]
-    # keep trailing non-grid axes as array dims, up to 2 total
-    for l in reversed(non_e):
-        if len(big_set) >= 2:
-            break
-        big_set.add(l)
-    big = [l for l in letters if l in big_set]  # appearance order
-    small = tuple(l for l in letters if l not in big_set)
-
+    big = tuple(l for l in letters if l in set(big))
+    small = tuple(l for l in letters if l not in big)
     combos = 1
     for l in small:
         combos *= lengths[l]
     if combos > MAX_UNROLL_COMBOS:
         raise InvalidParameterError(
             f"unrolling {small} needs {combos} slices (> {MAX_UNROLL_COMBOS})")
+    data = {key: load_piece(big, dict(zip(small, key)))
+            for key in itertools.product(*[range(lengths[l]) for l in small])}
 
-    data = {}
-    for key in itertools.product(*[range(lengths[l]) for l in small]):
-        idx = []
-        ki = iter(key)
-        for l in letters:
-            idx.append(slice(None) if l in big_set else next(ki))
-        # piece dims follow appearance order == `big` order
-        data[key] = block[tuple(idx)]
-    return Rep(small, tuple(big), data)
+    def source(new_big):
+        return rep_from_loader(letters, new_big, lengths, load_piece)
+    return Rep(small, big, data, source)
 
 
 def _bcast_to(piece_axes, piece, target_axes):
@@ -118,18 +141,12 @@ def _product(pieces, target_axes):
     return out
 
 
-def lower_step(factor_reps, out_letters, e_letter, lengths, *,
+def lower_step(factor_reps, out_letters, e_letter, lengths, padded, *,
                accum_dtype=None, big_order_pref=None,
-               dot_precision=None, mfold=False, mstack=False) -> Rep:
+               dot_precision=None) -> Rep:
     """Compute one schedule step from factor Reps; returns the result Rep.
-
-    *mfold* packs an unrolled output axis carried only by a resident factor
-    into the MXU M dimension: e.g. grad's ``tmp[r] = D[r] @ u`` runs 3
-    separate (35,35)@(35,c) dots, each wasting 93/128 of its M tile; with
-    mfold the 3 D slices are zero-padded to 8-aligned rows (35->40) and
-    stacked to one (120,35) operand — ONE dot, 3x fewer MXU tile passes,
-    and the per-r result slices start at sublane-aligned offsets (40r)."""
-    import jax
+    *lengths* are the axes' logical lengths (unroll ranges), *padded* their
+    in-kernel tensor extents."""
     import jax.numpy as jnp
 
     out_letters = tuple(out_letters)
@@ -147,11 +164,11 @@ def lower_step(factor_reps, out_letters, e_letter, lengths, *,
     def is_big_somewhere(l):
         return any(l in r.big for r in factor_reps)
 
-    # lane axis of the output: the *largest* eligible axis (picking a tiny
+    # dof axis of the output: the *largest* eligible axis (picking a tiny
     # trailing axis would unroll a big one — e.g. 'ej,es->ejs' must keep j=35
     # vectorized and unroll s=3, not the reverse).  Prefer axes that are big
     # in every factor carrying them; otherwise the straggler factors get
-    # promoted (their slices stacked) below.
+    # promoted below.
     n_loose = [l for l in out_letters
                if l != e_letter and is_big_somewhere(l)]
     n_strict = [l for l in n_loose
@@ -160,13 +177,12 @@ def lower_step(factor_reps, out_letters, e_letter, lengths, *,
     pool = n_strict or n_loose
     n_ax = max(pool, key=lambda l: lengths[l]) if pool else None
     if n_ax is not None and n_ax not in n_strict:
-        factor_reps = [
-            _promote(r, n_ax, lengths, jnp) if n_ax in r.small else r
-            for r in factor_reps]
+        factor_reps = [_promote(r, n_ax, keep=e_letter)
+                       if n_ax in r.small else r for r in factor_reps]
 
-    # contraction axis fed to the MXU: must be a big (array) axis in every
-    # factor that carries it — if it's an unrolled axis anywhere, the whole
-    # contraction over it unrolls into a VPU sum instead
+    # contraction axis fed to the dot: must be a big axis in every factor
+    # that carries it — if it's an unrolled axis anywhere, the whole
+    # contraction over it unrolls into a sum instead
     k_candidates = [
         l for l in contracted
         if l != e_letter and is_big_somewhere(l)
@@ -174,84 +190,35 @@ def lower_step(factor_reps, out_letters, e_letter, lengths, *,
     k_ax = (max(k_candidates, key=lambda l: lengths[l])
             if k_candidates else None)
 
-    def _unroll_combos(keep_set):
-        un = [l for l in all_letters if l not in keep_set]
-        c = 1
-        for l in un:
-            c *= lengths[l]
-        return un, c
-
     keep = {l for l in (e_letter if e_present else None, n_ax, k_ax)
             if l is not None}
-    unroll, combos = _unroll_combos(keep)
-    if combos > MAX_UNROLL_COMBOS:
-        # Fallback K promotion (r4, unlocks tc_pallas_v0 on the TCCG
-        # shapes): the strict rule above refuses a contraction axis that
-        # is an unrolled dim in ANY factor, which can leave a big
-        # contracted axis (e.g. tccg_02's 312-long d) in the unroll set
-        # and blow the combos cap.  When that happens — and ONLY then, so
-        # every previously-buildable step lowers exactly as before — stack
-        # the straggler factors' slices over the largest contracted axis
-        # into an array dim (demoting their would-be-unrolled array dims
-        # first; those unroll regardless) and contract it on the MXU.
-        k2_pool = [l for l in contracted
-                   if l not in (e_letter, k_ax) and lengths[l] > 1]
-        k2 = max(k2_pool, key=lambda l: lengths[l]) if k2_pool else None
-        if k2 is not None:
-            cand_reps, ok = [], True
-            for r in factor_reps:
-                if k2 in r.small:
-                    while len(r.big) >= 2:
-                        demotable = [l for l in r.big
-                                     if l not in (e_letter, n_ax, k2)]
-                        if not demotable:
-                            break
-                        r = _demote(r, min(demotable,
-                                           key=lambda l: lengths[l]),
-                                    lengths)
-                    if len(r.big) >= 2:
-                        ok = False
-                        break
-                    r = _promote(r, k2, lengths, jnp)
-                cand_reps.append(r)
-            if ok and all(k2 in r.big
-                          for r in cand_reps if k2 in r.small + r.big):
-                keep2 = {l for l in (e_letter if e_present else None,
-                                     n_ax, k2) if l is not None}
-                unroll2, combos2 = _unroll_combos(keep2)
-                if combos2 <= MAX_UNROLL_COMBOS:
-                    factor_reps, k_ax = cand_reps, k2
-                    unroll, combos = unroll2, combos2
+    unroll = [l for l in all_letters if l not in keep]
+    combos = 1
+    for l in unroll:
+        combos *= lengths[l]
     if combos > MAX_UNROLL_COMBOS:
         raise InvalidParameterError(
             f"step unroll over {unroll} needs {combos} combos")
 
     reps = []
     for rep in factor_reps:
-        for l in list(rep.big):
-            if l in unroll:
-                rep = _demote(rep, l, lengths)
+        drop = [l for l in rep.big if l in unroll]
+        if drop:
+            # unroll a tensor dim: reload the raw operand with it small
+            if rep.source is None:
+                raise InvalidParameterError(
+                    f"cannot unroll {drop} of a computed intermediate")
+            rep = rep.source(tuple(l for l in rep.big if l not in drop))
         reps.append(rep)
 
     out_small = tuple(l for l in out_letters if l in unroll)
     sum_small = [l for l in contracted if l in unroll]
 
-    # fold tiny unrolled contraction axes into the MXU K dimension when every
-    # factor carries them alongside k: sum_s A_s(e,k) @ B_s(k,n) becomes one
-    # concat_k(A) @ concat_k(B) with K' = |s| * K — strictly fewer (padded)
-    # MXU passes (e.g. DG div step2: 3 dots of K=35 -> 1 dot of K=105)
-    if (k_ax is not None and sum_small
-            and all(k_ax in r.big and set(sum_small) <= set(r.small)
-                    for r in reps)):
-        reps = [_fold_into_k(r, sum_small, k_ax, lengths, jnp)
-                for r in reps]
-        sum_small = []
-
     result_letters = {l for l in (e_letter if e_in_out else None, n_ax)
                       if l is not None}
     # orientation: honor the caller's preferred order (the output's stored
     # layout) when it covers the result; otherwise inherit the orientation of
-    # the factors so no VMEM transposes are introduced
+    # the factors so no transposes are introduced
     if (big_order_pref is not None and len(result_letters) == 2
             and set(big_order_pref) >= result_letters):
         result_big = tuple(sorted(result_letters,
@@ -265,106 +232,6 @@ def lower_step(factor_reps, out_letters, e_letter, lengths, *,
     else:
         result_big = tuple(result_letters)
 
-    # mfold fast path (see docstring): one unrolled output axis, carried by
-    # a single 2D resident factor, result oriented (n, e) so the packed
-    # slices come back out on 8-aligned sublane rows
-    if (mfold and len(out_small) == 1 and not sum_small
-            and k_ax is not None and n_ax is not None
-            and e_present and e_in_out
-            and result_big == (n_ax, e_letter)):
-        r_ax = out_small[0]
-        carriers = [rep for rep in reps if r_ax in rep.small]
-        others = [rep for rep in reps if r_ax not in rep.small]
-        if (len(carriers) == 1
-                and set(carriers[0].big) == {n_ax, k_ax}
-                and carriers[0].small == (r_ax,)
-                and all(not rep.small for rep in others)):
-            carrier = carriers[0]
-            nlen = lengths[n_ax]
-            padded = nlen + ((-nlen) % 8)
-            R = lengths[r_ax]
-            parts = []
-            for v in range(R):
-                piece = carrier.get({r_ax: v})
-                if carrier.big != (n_ax, k_ax):
-                    piece = piece.swapaxes(0, 1)
-                if padded != nlen:
-                    piece = jnp.pad(piece, ((0, padded - nlen), (0, 0)))
-                parts.append(piece)
-            stacked = jnp.concatenate(parts, axis=0)   # (R*padded, k)
-            pieces = ([((n_ax, k_ax), stacked)]
-                      + [(rep.big, rep.data[()]) for rep in others])
-            big_core = _contract_pieces(
-                pieces, e_letter, False, k_ax, n_ax, (n_ax, e_letter),
-                accum_dtype, dot_precision, jax, jnp)
-            result = {(v,): big_core[v * padded: v * padded + nlen, :]
-                      for v in range(R)}
-            return Rep(out_small, result_big, result)
-
-    # mstack fast path (multi-axis TC grids): stack the row-side (e,k)
-    # slices over ONE unrolled output letter along e, run a single
-    # M = R*elen_padded dot, and split the core back per slice — the
-    # streamed-factor analog of mfold.  E.g. tccg_05's 72 per-b dots of
-    # M=72 (5.9% MXU fill) become one M=5184 dot (10.5% fill, the N*K
-    # bound); tccg_02's per-a dots of M=296 lose 20% to the 296->384
-    # M-tile round-up that the stacked M=8*296 amortizes away.
-    if (mstack and e_present and e_in_out and k_ax is not None
-            and n_ax is not None and not sum_small and out_small):
-        aside_r = [r for r in reps
-                   if e_letter in r.big and k_ax in r.big]
-        b_r = [r for r in reps
-               if k_ax in r.big and e_letter not in r.big]
-        post_r = [r for r in reps if k_ax not in r.big]
-        has_n_side = any(n_ax in r.big for r in b_r)
-
-        def _stackable(l):
-            carriers = [r for r in reps if l in r.small]
-            return (carriers
-                    and all(r in aside_r for r in carriers))
-
-        cands = ([l for l in out_small if _stackable(l)]
-                 if (aside_r and has_n_side and not post_r) else [])
-        if cands:
-            r_ax = max(cands, key=lambda l: lengths[l])
-            R = lengths[r_ax]
-            elen = lengths[e_letter]
-            padded = elen + ((-elen) % 8)
-            a_axes = tuple(aside_r[0].big)
-            out_rest = tuple(l for l in out_small if l != r_ax)
-            r_pos = out_small.index(r_ax)
-            e_axis = result_big.index(e_letter)
-            result = {}
-            for rest_key in itertools.product(
-                    *[range(lengths[l]) for l in out_rest]):
-                rest_combo = dict(zip(out_rest, rest_key))
-                parts = []
-                for v in range(R):
-                    combo = {**rest_combo, r_ax: v}
-                    piece = _product(
-                        [(tuple(rp.big), rp.get(combo))
-                         for rp in aside_r], a_axes)
-                    if a_axes[0] != e_letter:
-                        piece = piece.swapaxes(0, 1)
-                    if padded != elen:
-                        piece = jnp.pad(piece,
-                                        ((0, padded - elen), (0, 0)))
-                    parts.append(piece)
-                stacked = (jnp.concatenate(parts, axis=0) if R > 1
-                           else parts[0])
-                pieces = ([((e_letter, k_ax), stacked)]
-                          + [(tuple(rp.big), rp.get(rest_combo))
-                             for rp in b_r])
-                big_core = _contract_pieces(
-                    pieces, e_letter, False, k_ax, n_ax, result_big,
-                    accum_dtype, dot_precision, jax, jnp)
-                for v in range(R):
-                    sl = [slice(None)] * len(result_big)
-                    sl[e_axis] = slice(v * padded, v * padded + elen)
-                    key = list(rest_key)
-                    key.insert(r_pos, v)
-                    result[tuple(key)] = big_core[tuple(sl)]
-            return Rep(out_small, result_big, result)
-
     result = {}
     for out_key in itertools.product(*[range(lengths[l]) for l in out_small]):
         out_combo = dict(zip(out_small, out_key))
@@ -375,108 +242,44 @@ def lower_step(factor_reps, out_letters, e_letter, lengths, *,
             pieces = [(r.big, r.get(combo)) for r in reps]
             val = _contract_pieces(
                 pieces, e_letter if e_present else None, e_contracted,
-                k_ax, n_ax, result_big, accum_dtype, dot_precision,
-                jax, jnp)
+                k_ax, n_ax, result_big, accum_dtype, dot_precision)
             acc = val if acc is None else acc + val
-        # materialize to the full block shape so downstream consumers and
-        # ref-stores see exact shapes
+        # materialize to the full tile shape so downstream consumers and
+        # stores see exact shapes
         if result_big:
-            full = tuple(lengths[l] for l in result_big)
+            full = tuple(padded[l] for l in result_big)
             if acc.shape != full:
                 acc = jnp.broadcast_to(acc, full)
         result[out_key] = acc
     return Rep(out_small, result_big, result)
 
 
-def _fold_into_k(rep: Rep, fold_letters, k_ax, lengths, jnp) -> Rep:
-    """Concatenate the slices over *fold_letters* along the k axis (same
-    enumeration order in every factor, so the widened contraction equals the
-    unrolled sum)."""
-    import itertools as it
-
-    k_pos = rep.big.index(k_ax)
-    keep_small = tuple(l for l in rep.small if l not in fold_letters)
-    fold_pos = [rep.small.index(l) for l in fold_letters]
-    keep_pos = [i for i, l in enumerate(rep.small) if l not in fold_letters]
-    data = {}
-    for keep_key in it.product(*[range(lengths[rep.small[i]])
-                                 for i in keep_pos]):
-        parts = []
-        for fold_key in it.product(*[range(lengths[l])
-                                     for l in fold_letters]):
-            full = [None] * len(rep.small)
-            for i, v in zip(keep_pos, keep_key):
-                full[i] = v
-            for i, v in zip(fold_pos, fold_key):
-                full[i] = v
-            parts.append(rep.data[tuple(full)])
-        data[keep_key] = (parts[0] if len(parts) == 1
-                          else jnp.concatenate(parts, axis=k_pos))
-    return Rep(keep_small, rep.big, data)
-
-
-def _promote(rep: Rep, letter, lengths, jnp) -> Rep:
-    """Stack the slices over *letter* into a trailing array dim (the inverse
-    of demotion; used when another factor needs the axis vectorized)."""
-    if len(rep.big) >= 2:
+def _promote(rep: Rep, letter, keep=None) -> Rep:
+    """Turn the unrolled axis *letter* of a raw operand into a tensor dim
+    (used when another factor needs the axis vectorized) by reloading it;
+    with two tensor dims already, the one that is not *keep* becomes
+    unrolled.  A computed tile cannot be re-split (Triton cannot stack or
+    slice loaded values): such a schedule is refused."""
+    if rep.source is None:
         raise InvalidParameterError(
-            f"cannot promote {letter}: {rep.big} already has 2 array dims")
-    pos = rep.small.index(letter)
-    keep_small = tuple(l for i, l in enumerate(rep.small) if i != pos)
-    data = {}
-    import itertools as it
-    for key in it.product(*[range(lengths[l]) for l in keep_small]):
-        parts = []
-        for v in range(lengths[letter]):
-            full = list(key)
-            full.insert(pos, v)
-            parts.append(rep.data[tuple(full)])
-        data[key] = jnp.stack(parts, axis=len(rep.big))
-    return Rep(keep_small, rep.big + (letter,), data)
-
-
-def _demote(rep: Rep, letter, lengths) -> Rep:
-    axis = rep.big.index(letter)
-    new_big = tuple(l for l in rep.big if l != letter)
-    data = {}
-    for key, arr in rep.data.items():
-        for v in range(lengths[letter]):
-            idx = tuple(v if i == axis else slice(None)
-                        for i in range(len(rep.big)))
-            data[key + (v,)] = arr[idx]
-    return Rep(rep.small + (letter,), new_big, data)
-
-
-def _dot_bf16_3x(lhs, rhs, dims, jax, jnp):
-    """f32 matmul as three bf16 MXU passes (hi*hi + hi*lo + lo*hi), ~2x the
-    6-pass Precision.HIGHEST rate at ~2^-21 relative accuracy."""
-    def split(x):
-        hi = x.astype(jnp.bfloat16)
-        lo = (x - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-        return hi, lo
-
-    lh, ll = split(lhs)
-    rh, rl = split(rhs)
-    kw = {"preferred_element_type": jnp.float32}
-    return (jax.lax.dot_general(lh, rh, dims, **kw)
-            + jax.lax.dot_general(lh, rl, dims, **kw)
-            + jax.lax.dot_general(ll, rh, dims, **kw))
+            f"cannot vectorize {letter} of a computed intermediate")
+    big = rep.big if len(rep.big) < 2 else tuple(
+        l for l in rep.big if l == keep)
+    return rep.source(big + (letter,))
 
 
 def _contract_pieces(pieces, e, e_contracted, k, n, result_big, accum_dtype,
-                     dot_precision, jax, jnp):
-    """Contract factor pieces (each dims subset of {e,k,n}) over k (MXU when
-    possible) and over e when e is contracted (VPU sum)."""
-    use_3x = dot_precision == "bf16_3x"
-    dot_kwargs = {}
-    if accum_dtype is not None:
-        dot_kwargs["preferred_element_type"] = accum_dtype
-    if dot_precision is not None and not use_3x:
+                     dot_precision):
+    """Contract factor pieces (each dims subset of {e,k,n}) over k (a dot
+    when possible) and over e when e is contracted (a sum)."""
+    import jax
+    import jax.numpy as jnp
+
+    dot_kwargs = {"preferred_element_type": accum_dtype or jnp.float32}
+    if dot_precision is not None:
         dot_kwargs["precision"] = dot_precision
 
     def do_dot(lhs, rhs, dims):
-        if use_3x and jnp.dtype(lhs.dtype) == jnp.float32:
-            return _dot_bf16_3x(lhs, rhs, dims, jax, jnp)
         return jax.lax.dot_general(lhs, rhs, dims, **dot_kwargs)
 
     post = [(axes, arr) for axes, arr in pieces if k is None or k not in axes]
@@ -489,9 +292,8 @@ def _contract_pieces(pieces, e, e_contracted, k, n, result_big, accum_dtype,
         konly = [(a, x) for a, x in kgroup if a == (k,)]
         assert len(aside) + len(bside) + len(konly) == len(kgroup), (
             "unclassifiable k-group piece (axes beyond {e,k,n}?)")
-        # build each side in the storage order of its first 2D piece so
-        # Mosaic never has to transpose blocks; dot_general contracts along
-        # whichever positions k landed in
+        # build each side in the storage order of its first 2D piece;
+        # dot_general contracts along whichever positions k landed in
         a_axes = next((a for a, _ in aside if len(a) == 2), (e, k))
         b_axes = next((a for a, _ in bside if len(a) == 2),
                       (k, n) if n else (k,))

@@ -1,35 +1,17 @@
 """
-Layout inference for streamed operands.
+Storage layouts of streamed operands, and their inverses.
 
-Measured on TPU v5e (scripts/tpu_layout_probe.py): blocks shaped
-``(block, ndof)`` with a short trailing axis DMA 4*ndof-byte row fragments at
-~23% of HBM peak, while the same data with the long axis on the dense lane
-dimension streams at ~70-84%.  ``dofmajor_layouts`` computes the argument and
-output permutations that rotate every parametric (long) axis to the back.
+``dofmajor_layouts`` computes the argument and output permutations that
+rotate every parametric (long) axis to the back, so that one block of
+elements is a contiguous run of every dof row; ``fold_long`` and
+``preblock_args`` are further storage contracts kept for archived schedules
+(see :class:`~feinsum_tpu.codegen.descriptor.ScheduleDescriptor`).
 """
 
 from __future__ import annotations
 
 from ..diagnostics import InvalidParameterError
 from ..einsum import BatchedEinsum, SizeParam
-
-
-def index_map_i32(fn):
-    """Wrap a Pallas ``index_map`` so every returned element is an i32.
-
-    Under ``jax_enable_x64`` (enabled by the fp64/dd oracle path) literal
-    ints inside an index map trace as i64 constants, and this relay's
-    Mosaic build rejects the whole module with ``failed to legalize
-    operation 'func.return'`` on the mapping function's mixed
-    ``(i64, i64, i32)`` return — root-caused 2026-08-20 via the solo dd
-    diagnostic (VERDICT r4 next #4; /tmp/dd_diag_report.txt).  Mosaic grid
-    indices are i32, so the cast is the identity when x64 is off.
-    """
-    import jax.numpy as jnp
-
-    def wrapped(*gids):
-        return tuple(jnp.asarray(v, jnp.int32) for v in fn(*gids))
-    return wrapped
 
 
 def dofmajor_layouts(einsum: BatchedEinsum):
@@ -54,7 +36,8 @@ def dofmajor_layouts(einsum: BatchedEinsum):
             layouts.append((name, rotate(idx_set)))
         elif not (set(idx_set) & long_letters) and len(idx_set) > 2:
             # resident (non-streamed) operands: keep the two largest axes
-            # trailing so they stay vectorized in VMEM and tiny axes unroll
+            # trailing so they stay tensor dims in the kernel and tiny axes
+            # unroll
             # (e.g. the face-lift matrix (i,f,j) -> (f,i,j))
             sizes = {ix: int(einsum.index_to_dim_length[ix])
                      for ix in idx_set}
@@ -79,7 +62,7 @@ def apply_nested_layout(arr, nested):
 
     This is the host-side half of ``descriptor.pre_layouts`` — the
     fused-storage contract that keeps high-rank small-dim tensors in
-    TPU-tileable (e.g. GEMM-natural 2D) form."""
+    GEMM-natural 2D form."""
     flat = tuple(int(p) for g in nested for p in g)
     if sorted(flat) != list(range(arr.ndim)):
         raise ValueError(
@@ -96,7 +79,7 @@ def apply_nested_layout(arr, nested):
     return arr.reshape(tuple(shape))
 
 
-# {{{ fold-8 sublane layout (descriptor.fold_long)
+# {{{ folded long axis (descriptor.fold_long)
 
 def fold_axis_of(program):
     """The long axis letter that ``descriptor.fold_long`` folds, or ``None``
@@ -133,7 +116,7 @@ def stored_arg_layouts(program) -> dict:
 def check_foldable(program) -> str:
     """Validate that fold_long can apply; returns the folded axis letter.
     Every operand and output carrying the axis must store it trailing
-    (dof-major) — folding a middle axis would not fix the sublane tiling."""
+    (dof-major), so the fold is a free view of the buffer."""
     fold_ix = fold_axis_of(program)
     assert fold_ix is not None
     for name, stored in stored_arg_layouts(program).items():
@@ -159,12 +142,11 @@ def preblock_names(program) -> tuple:
 
 
 def preblock_small_args(einsum, *, max_rows: int = 16) -> tuple:
-    """Arg names worth pre-blocking: they carry the (unique) long axis and
-    their non-long dims multiply to <= *max_rows* sublane rows — i.e. the
-    stored-trailing layout wastes >= 1/3 of their DMA on sublane padding
-    (DG Jacobians (3,E)/(3,3,E), mass jacobians (E,), face flux factors
-    (4,E)).  Big operands (u (35,E)) never qualify: their padding waste is
-    12.5% and the in-kernel repack would cost more than it saves."""
+    """Arg names the ``preblock`` knob applies to: they carry the (unique)
+    long axis and their non-long dims multiply to <= *max_rows* rows that
+    are not a multiple of 8 (DG Jacobians (3,E)/(3,3,E), mass jacobians
+    (E,), face flux factors (4,E)); big operands (u (35,E)) never
+    qualify."""
     long_letters = {ix for ix, ln in einsum.index_to_dim_length.items()
                     if isinstance(ln, SizeParam)}
     names = []
@@ -187,7 +169,7 @@ PREBLOCK_F = 8
 def preblock_geometry(block_long: int, length: int, fold: int = 1):
     """(B, blk_c, nb) for pre-blocked storage of a long axis of *length*:
     B = elements per block, blk_c = lanes per block, nb = number of blocks.
-    Must agree between the host packer and the kernel's BlockSpecs."""
+    Must agree between the host packer and the emitter's unpacking."""
     if fold > 1:
         c_len = length // fold
         blk_c = min(max(block_long // fold, 1), c_len)
@@ -200,21 +182,8 @@ def preblock_geometry(block_long: int, length: int, fold: int = 1):
     return B, B // PREBLOCK_F, -(-length // B)
 
 
-def preblock_engaged(block_long: int, length: int, fold: int = 1) -> bool:
-    """Whether pre-blocked storage actually engages for this axis length.
-    The unfolded path merges each block (…, 8, blk_c) -> (…, 8*blk_c)
-    in-kernel; Mosaic crashes on that relayout when blk_c is below one lane
-    tile (observed: (8,13)->(104,) kills the compiler), so tiny axes
-    (validation-sized runs) fall back to plain storage on both the packer
-    and emitter side.  The folded path never merges and always engages."""
-    if fold > 1:
-        return True
-    _, blk_c, _ = preblock_geometry(block_long, length, 1)
-    return blk_c >= 128
-
-
 def preblock_arrays(program, arrays: dict) -> dict:
-    """Repack the descriptor's ``preblock_args`` into tile-exact pre-blocked
+    """Repack the descriptor's ``preblock_args`` into pre-blocked
     storage.  Arrays must already be permuted (arg_layouts) and folded
     (fold_arrays); the long/c axis is trailing.  Zero-pads the tail so the
     final block is exact (zero factors keep contracted-grid sums exact)."""
@@ -230,8 +199,6 @@ def preblock_arrays(program, arrays: dict) -> dict:
     for name in names:
         arr = out[name]
         length = arr.shape[-1] * (fold if fold > 1 else 1)
-        if not preblock_engaged(desc.block_long, length, fold):
-            continue
         B, blk_c, nb = preblock_geometry(desc.block_long, length, fold)
         if isinstance(arr, np.ndarray):
             xp = np
@@ -309,8 +276,7 @@ def unpack_output(program, arr, logical_shape):
     The forward chain (see measure.validate_batched_einsum_transform) is
     pre_out_layout -> lane_pack -> out_layout -> fold_long -> dd pairs;
     this applies the inverses in reverse order.  Works on numpy and jax
-    arrays (reshapes/transposes only — on device they lower to XLA
-    relayouts)."""
+    arrays (reshapes/transposes only)."""
     import numpy as np
 
     desc = program.descriptor

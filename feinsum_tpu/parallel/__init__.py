@@ -1,19 +1,21 @@
 """
 Multi-chip execution of batched-einsum programs over a ``jax.sharding.Mesh``.
 
-The reference is single-device (SURVEY.md §2.4); this layer is the TPU-native
+The reference is single-device (SURVEY.md §2.4); this layer is the
 extension: the parametric element axis is embarrassingly parallel (every
 archived einsum's contractions are element-local), so
 
 * :func:`sharded_einsum_executable` shards the long axis across a mesh axis
-  with ``shard_map`` — pure data parallelism over ICI, no collectives;
+  with ``shard_map`` — pure data parallelism, no collectives;
 * :func:`reduction_sharded_executable` additionally splits one *contracted*
   axis across a second mesh axis and ``psum``s partial results — the
-  tensor-parallel pattern, used when a single chip's HBM bandwidth is the
+  tensor-parallel pattern, used when a single card's HBM bandwidth is the
   bottleneck and operands are sharded at rest.
 
 Each shard runs the same fused Pallas/XLA kernel built by
-``build_executable``; XLA inserts the ICI collectives.
+``build_executable``; XLA inserts the collectives (NCCL over NVLink).  The
+cards of a host are joined all to all, so meshes follow the algorithm,
+not a torus.
 """
 
 from __future__ import annotations
@@ -66,7 +68,11 @@ def _specs_for(program: EinsumProgram, shard_axis: str, mesh_axis: str,
             arg_idx[arg.name] = idx_set
     in_specs = {name: spec_of(idx_set, name)
                 for name, idx_set in arg_idx.items()}
-    out_spec = spec_of(tuple(e.out_idx_set))
+    out_idx = tuple(e.out_idx_set)
+    if program.descriptor.out_layout is not None:
+        # outputs are delivered in the descriptor's stored layout
+        out_idx = tuple(out_idx[p] for p in program.descriptor.out_layout)
+    out_spec = spec_of(out_idx)
     return in_specs, tuple(out_spec for _ in range(e.b))
 
 
@@ -110,7 +116,7 @@ def reduction_sharded_executable(program: EinsumProgram, mesh, *,
                                  shard_axis: Optional[str] = None):
     """2D-sharded executable: long axis over *data_axis* (pure DP) and one
     contracted index over *model_axis* (TP) with a ``psum`` over partial
-    contractions riding ICI."""
+    contractions."""
     import jax
     from jax import shard_map
 
@@ -253,7 +259,7 @@ def pipeline_stage_executable(stage_fns, mesh, *, stage_axis: str = "stage",
                               carry_shape_dtype):
     """GPipe-style pipeline parallelism (PP) over *stage_axis*: device ``s``
     of the stage ring owns ``stage_fns[s]`` and microbatches flow through
-    the ring via ``ppermute`` (ICI neighbor hops, never DCN), with the
+    the ring via ``ppermute`` (neighbor hops on the mesh), with the
     standard ``S - 1``-tick fill/drain bubble.
 
     ``stage_fns[s] (microbatch_inputs, carry) -> carry`` must all return
@@ -307,7 +313,7 @@ def pipeline_stage_executable(stage_fns, mesh, *, stage_axis: str = "stage",
             new = jnp.where(valid, new, jnp.zeros_like(new))
             outs = jax.lax.dynamic_update_index_in_dim(
                 outs, jnp.where(valid & is_last, new, outs[m_c]), m_c, 0)
-            # hand the activation to the next stage over ICI (ring hop);
+            # hand the activation to the next stage (ring hop);
             # stage 0 receives zeros, which it never reads
             carry = jax.lax.ppermute(new, stage_axis, perm) \
                 if perm else new

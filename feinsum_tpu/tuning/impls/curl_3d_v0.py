@@ -9,9 +9,8 @@ Reference counterpart: ``tuning/impls/re_rji_ej_to_ei_3d_cross_product_v0.py``
 ``:12-40``).  Here multi-row accumulation is native to the emitter (every
 batch row lowers inside one fused kernel and rows sharing operands CSE).
 The space is the shared DG definition (``make_dg_space``); curl is the
-family where ``prereduce`` gates ON (its D(r,i,j) has r private) — the
-champion is prereduce + host_hoist (resident step run once per launch in
-XLA, bench r2).  The file exists so curl-class facts carry their own
+family where ``prereduce`` gates ON (its D(r,i,j) has r private; the
+built-in schedule pre-reduces it in XLA once per launch).  The file exists so curl-class facts carry their own
 transform_id in the archive.
 """
 

@@ -4,8 +4,9 @@ Schedule space for the DG gradient family ``xre,rij,ej->xei`` (and the
 
 Reference counterpart: ``tuning/impls/xre_rij_ej_to_xei.py`` /
 ``re_rij_ej_to_ei*.py``.  The space is the shared DG definition
-(``make_dg_space``); grad's historical win is ``mfold`` (pack the 3
-unrolled r-dots into one MXU M=120 dot), now searchable on every family.
+(``make_dg_space``); the hoisted schedule (``hoist``) computes the 3
+r-dots once per element block and contracts them with the Jacobian on
+chip.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """
-Schedule space for bandwidth-bound kernels over one long axis — v1 adds the
-dof-major layout knob (XLA:TPU tiles (E, ndof) HBM arrays to (8,128),
-padding short lane dims ~3.7x; rotating the long axis onto lanes recovers
-it).  Supersedes the retired elementwise_v0 (no archived fact ever referenced it).
+Schedule space for bandwidth-bound kernels over one long axis: block size,
+warps, and the dof-major layout knob (the long axis stored trailing, so
+each element block is a contiguous run of every dof row).  Archived rows'
+``blkc128`` / ``flatten`` / ``parallel_grid`` / ``vmem_idx`` knobs are
+accepted so they replay, but no longer change the kernel.
 """
 
 from __future__ import annotations
@@ -11,20 +12,17 @@ from feinsum_tpu.tuning import BoolParameter, IntParameter, transform_param
 from feinsum_tpu.tuning.impls._common import fused_pallas_program
 
 
-@transform_param("log2_block", lambda e: IntParameter(8, 18))
-@transform_param("blkc128", lambda e: IntParameter(0, 32))
+@transform_param("log2_block", lambda e: IntParameter(4, 10))
+@transform_param("log2_warps", lambda e: IntParameter(2, 3))
 @transform_param("dofmajor", lambda e: BoolParameter())
 @transform_param("fold", lambda e: BoolParameter())
-@transform_param("flatten", lambda e: BoolParameter())
-@transform_param("parallel_grid", lambda e: BoolParameter())
-@transform_param("vmem_idx", lambda e: IntParameter(0, 2))
-def transform(program, log2_block, blkc128=0, *, dofmajor, flatten,
-              parallel_grid, fold=False, vmem_idx=None):
+def transform(program, log2_block, blkc128=0, *, dofmajor, log2_warps=2,
+              fold=False, flatten=False, parallel_grid=True, vmem_idx=None):
     from feinsum_tpu.tuning.impls._common import resolve_block
+    del flatten, parallel_grid, vmem_idx     # archived-row knobs
     return fused_pallas_program(
         program, block_long=resolve_block(log2_block, blkc128), hoist=False,
-        parallel_grid=parallel_grid, dofmajor=dofmajor, fold=fold,
-        flatten=flatten, vmem_idx=vmem_idx)
+        dofmajor=dofmajor, fold=fold, num_warps=2 ** int(log2_warps))
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 Schedule space for the DG face-mass / lift family ``ifj,fe,fej->ei``.
 
 Reference counterpart: ``tuning/impls/ifj_fe_fej_to_ei*.py`` (gather-heavy,
-per-face unroll).  On TPU the tiny face axis ``f`` unrolls inside the kernel
+per-face unroll).  The tiny face axis ``f`` unrolls inside the kernel
 automatically (it is a small axis in the lowering); the space is the shared
 DG definition (``make_dg_space``).
 """

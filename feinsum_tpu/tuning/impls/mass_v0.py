@@ -4,9 +4,7 @@ per-element matvec ``ij,ej->ei``.
 
 Reference counterpart: ``tuning/impls/e_ij_ej_to_ei_no_prftch.py`` /
 ``ij_ej_to_ei_no_prftch.py``.  The space is the shared DG definition
-(``make_dg_space``): the matvec class keeps gaining from bigger fold blocks
-through b15-b16 (scripts/tpu_grad3_probe.py / tpu_mfold_probe), hence the
-shared 2^18 block cap.
+(``make_dg_space``).
 """
 
 from __future__ import annotations

@@ -3,25 +3,16 @@ First-party TC-as-GEMM schedule space for dense 2-operand tensor
 contractions (the COGENT-class shapes, reference ``tuning/impls/cogent.py``
 / ``ttgt.py``).
 
-The TPU-native insight (measured, scripts/tpu_tc2_probe.py): the TTGT
-transposes the reference tunes on GPU are not the schedule choice that
-matters here — the *storage rank* is.  XLA:TPU's T(8,128) tiled HBM layout
-pads the trailing dims of every high-rank small-dim tensor (a rank-6
-(24,16,16,24,16,16) TCCG output has trailing <= 24 under every permutation
--> 5-8x physical write amplification; tccg_35 measured 43 GB/s logical),
-so this space stores operands and output **fused to GEMM-natural 2D**
-(``descriptor.pre_layouts`` / ``pre_out_layout`` — host-side storage
-contracts, the same vocabulary as the DG suite's dof-major layouts) and
-contracts (M,K)x(N,K)->(M,N) directly:
+The schedule choice is the *storage rank*: operands and output are stored
+**fused to GEMM-natural 2D** (``descriptor.pre_layouts`` /
+``pre_out_layout`` — host-side storage contracts, the same vocabulary as
+the DG suite's dof-major layouts) and contracted (M,K)x(N,K)->(M,N)
+directly:
 
-- ``backend_pallas=False``: one XLA dot at the chosen precision
-  (M=N=6144,K=24 measured 310 us @ highest vs 3505 us for the rank-6
-  einsum form);
+- ``backend_pallas=False``: one XLA dot at the chosen precision;
 - ``backend_pallas=True``: the library's own streaming Pallas kernel
-  (mass/matvec family: resident (N,K) factor in VMEM, grid over M), which
-  beats XLA on small-K shapes (270 us @ bf16_3x = 564 GB/s of the 652
-  write ceiling) because it accumulates the 3-pass split in VMEM instead
-  of materializing three f32 outputs.
+  (mass/matvec family: resident (N,K) factor loaded whole by every
+  program, grid over M).
 """
 
 from __future__ import annotations
@@ -79,17 +70,17 @@ def _gemm_split(e, swap):
     return lhs, rhs, lhs_idx, rhs_idx, m_idx, n_idx, k_idx
 
 
-@transform_param("log2_block", lambda e: IntParameter(8, 16))
-@transform_param("blkc128", lambda e: IntParameter(0, 32))
+@transform_param("log2_block", lambda e: IntParameter(4, 10))
 @transform_param("backend_pallas", lambda e: BoolParameter())
 @transform_param("precision_idx",
                  lambda e: IntParameter(0, len(_PRECISIONS) - 1))
 @transform_param("swap", lambda e: BoolParameter())
 @transform_param("dofmajor", lambda e: BoolParameter())
 @transform_param("fold", lambda e: BoolParameter())
-@transform_param("vmem_idx", lambda e: IntParameter(0, 2))
 def transform(program, log2_block, blkc128=0, *, backend_pallas,
               precision_idx, swap, dofmajor=False, fold=False, vmem_idx=2):
+    """``blkc128`` and ``vmem_idx`` are archived-row knobs: accepted so
+    old rows replay, without effect on the kernel."""
     import numpy as np
 
     import feinsum_tpu as f
@@ -129,8 +120,8 @@ def transform(program, log2_block, blkc128=0, *, backend_pallas,
     if backend_pallas:
         p2 = fused_pallas_program(
             p2, block_long=resolve_block(log2_block, blkc128), hoist=False,
-            parallel_grid=True, dofmajor=dofmajor, fold=fold,
-            precision_3x=(precision == "bf16_3x"), vmem_idx=vmem_idx)
+            dofmajor=dofmajor, fold=fold,
+            precision=precision)
         if precision == "default":
             raise InvalidParameterError(
                 "pallas route has no 1-pass mode (duplicate of highest)")

@@ -2,10 +2,10 @@
 Schedule space for dense 2-operand tensor contractions (the TCCG suite):
 XLA backend with tunable contraction order and matmul precision.
 
-Reference counterpart: ``tuning/impls/cogent*.py`` / ``ttgt.py``.  XLA:TPU
-already performs COGENT-style MXU tiling and TTGT-style transposes for
-arbitrary dot_generals; the remaining schedule choices are the contraction
-path and the MXU precision/pass-count trade-off.
+Reference counterpart: ``tuning/impls/cogent*.py`` / ``ttgt.py``.  XLA
+already performs COGENT-style tiling (cuBLAS or its own GEMM emitters) and
+TTGT-style transposes for arbitrary dot_generals; the remaining schedule
+choices are the contraction path and the precision/pass-count trade-off.
 """
 
 from __future__ import annotations

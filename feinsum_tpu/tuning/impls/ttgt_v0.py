@@ -3,9 +3,9 @@ TTGT (Transpose-Transpose-GEMM-Transpose) schedule space for dense
 2-operand tensor contractions.
 
 Reference counterpart: ``tuning/impls/ttgt.py`` (tuned tile params for three
-transpose kernels + a GEMM).  On TPU the GEMM and its MXU tiling belong to
-XLA; the schedule choices that remain are the operand/output *layout
-permutations* (which axes land on the MXU's contiguous dims — the "TT" and
+transpose kernels + a GEMM).  Here the GEMM and its tiling belong to XLA;
+the schedule choices that remain are the operand/output *layout
+permutations* (which axes land on the GEMM's contiguous dims — the "TT" and
 the final "T") plus the contraction path and precision.
 """
 

@@ -1,8 +1,8 @@
 """
 Schedule space lowering any batched einsum through the XLA backend:
 contraction path x matmul precision.  The general-purpose fallback space —
-in particular the fp64 path (XLA:TPU emulates f64; Mosaic kernels do not
-support f64 dots), mirroring the reference's fp64-centric archive rows
+in particular the fp64 path (XLA's native double arithmetic; the Pallas
+kernel is f32-only), mirroring the reference's fp64-centric archive rows
 (its ``tuning/impls`` all target fp64 on the TITAN V).
 """
 
@@ -18,7 +18,7 @@ from feinsum_tpu.tuning import BoolParameter, IntParameter, transform_param
 # "default" and "highest" both resolve to Precision.HIGHEST for >=32-bit
 # dtypes (codegen/program.py _precision) — the duplication is kept on
 # purpose: the two differ for sub-32-bit dtypes (bf16 inputs run the native
-# 1-pass MXU path under "default"), and archived precision_idx values would
+# 1-pass path under "default"), and archived precision_idx values would
 # silently change meaning if the tuple were reordered or shrunk.
 _PRECISIONS = ("default", "highest", "bf16_3x")
 

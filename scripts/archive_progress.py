@@ -1,4 +1,4 @@
-"""Summarize what a TPU tuning session added to the shipped archive.
+"""Summarize what a tuning session added to the shipped archive.
 
 CPU-only, read-only sqlite — safe to run while a tuning process INSERTs.
 For every einsum class: the current champion (rate, transform_id, proto

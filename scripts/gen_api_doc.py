@@ -61,18 +61,15 @@ MODULES = [
     ("feinsum_tpu.contraction_schedule", "schedule construction"),
     ("feinsum_tpu.codegen.descriptor", "schedules-as-data descriptors"),
     ("feinsum_tpu.codegen.program", "program build + executables"),
-    ("feinsum_tpu.ops.pallas_emitter", "fused Pallas kernels"),
+    ("feinsum_tpu.ops.pallas_emitter", "fused Pallas kernels (Triton)"),
     ("feinsum_tpu.ops.kernel_lowering", "in-kernel step lowering (Rep)"),
-    ("feinsum_tpu.ops.dd_emitter", "double-double fp64 kernels"),
     ("feinsum_tpu.ops.layouts", "dof-major / fold / preblock contracts"),
     ("feinsum_tpu.matching", "jaxpr grammar matcher"),
     ("feinsum_tpu.apply", "compile_fn_with_archive consumer path"),
     ("feinsum_tpu.measure", "timing protocols, rooflines, validation"),
     ("feinsum_tpu.sql_utils", "transform DB"),
     ("feinsum_tpu.tuning", "autotune driver + parameter DSL"),
-    ("feinsum_tpu.tuning.cost_model", "analytic per-launch predictor"),
-    ("feinsum_tpu.parallel", "multi-chip DP/TP/EP/PP over jax.sharding"),
-    ("feinsum_tpu.tpu_lock", "cross-process device lock"),
+    ("feinsum_tpu.parallel", "multi-card DP/TP/EP/PP over jax.sharding"),
     ("feinsum_tpu.algebraic", "jaxpr CSE / hoisting"),
     ("feinsum_tpu.diagnostics", "exception taxonomy"),
     ("feinsum_tpu.utils", "TCCG benchmark table and helpers"),
@@ -117,7 +114,7 @@ def main():
             "Submodule namespaces (`f.measure`, `f.tuning`, `f.sql_utils`,"
             " `f.matching`, `f.apply`, `f.algebraic`, `f.canonicalization`,"
             " `f.codegen`, `f.ops`, `f.utils`, `f.diagnostics`,"
-            " `f.cl_utils`, `f.tpu_lock`, `f.contraction_schedule`,"
+            " `f.cl_utils`, `f.contraction_schedule`,"
             " `f.data`) are also importable directly.", ""]
     with open("doc/api.md", "w") as fh:
         fh.write("\n".join(out))
@@ -125,7 +122,7 @@ def main():
     missing = public - documented - {
         "measure", "tuning", "sql_utils", "matching", "apply", "algebraic",
         "canonicalization", "codegen", "ops", "utils", "diagnostics",
-        "cl_utils", "tpu_lock", "contraction_schedule", "data", "einsum",
+        "cl_utils", "contraction_schedule", "data", "einsum",
         "make_einsum"}
     print(f"doc/api.md written; {len(documented)} names documented;"
           f" missing: {sorted(missing) or 'none'}")

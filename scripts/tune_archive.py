@@ -1,14 +1,16 @@
-"""Seed the shipped transform archive by autotuning the reference suite on
-the real TPU.  One einsum at a time, budgeted; resumable (DB dedup)."""
+"""Seed the transform archive by autotuning the reference suite on the GPU
+(facts are keyed by the card's device kind).  One einsum at a time,
+budgeted; resumable (DB dedup).
+
+Usage: python scripts/tune_archive.py [seconds-per-einsum] [impl-filter]
+"""
 import logging
 import sys
 import time
 
-import jax
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 import feinsum_tpu as f
+
+f.enable_persistent_compilation_cache()
 from feinsum_tpu import sql_utils
 from feinsum_tpu.tuning import autotune
 
@@ -95,35 +97,22 @@ if __name__ == "__main__":
         print(f"=== tuning {impl}: {einsum.get_subscripts()} ===",
               flush=True)
         t0 = time.time()
+        # seeds: the built-in kernel schedule (dof-major, hoisted) at the
+        # block sizes Triton compiles well, both 3-pass precisions
         seeds = []
         if impl in ("dg_div_v0", "dg_grad_v0", "face_mass_v0",
-                    "curl_3d_v0"):
-            for lb, fold, pb in ((13, False, False), (14, False, False),
-                                 (15, True, False), (13, False, True),
-                                 (14, False, True), (15, False, True)):
-                seeds.append({"log2_block": lb, "hoist": True,
-                              "parallel_grid": True, "dofmajor": True,
-                              "fold": fold, "preblock": pb,
-                              "precision_3x": False, "jfold": False})
-            # the div-winning combination: outer-product schedule + fold +
-            # preblock + 3-pass dots (79.9% roofline measured at b14)
-            for lb, fold in ((13, True), (14, True), (15, True),
-                             (13, False)):
-                seeds.append({"log2_block": lb, "hoist": True,
-                              "parallel_grid": True, "dofmajor": True,
-                              "fold": fold, "preblock": True,
-                              "precision_3x": True, "jfold": True})
-        elif impl == "mass_v0":
-            for lb, fold, pb in ((14, False, False), (15, True, False),
-                                 (14, False, True), (15, False, True)):
-                seeds.append({"log2_block": lb, "parallel_grid": True,
-                              "dofmajor": True, "fold": fold,
-                              "preblock": pb, "precision_3x": False})
+                    "curl_3d_v0", "mass_v0"):
+            for lb in (6, 7, 8):
+                for p3 in (False, True):
+                    seeds.append({"log2_block": lb, "log2_warps": 2,
+                                  "num_stages": 2, "hoist": True,
+                                  "dofmajor": True, "fold": False,
+                                  "preblock": False, "precision_3x": p3,
+                                  "jfold": impl == "curl_3d_v0"})
         elif impl == "elementwise_v1":
-            for lb, fold in ((14, False), (15, True), (16, True)):
-                seeds.append({"log2_block": lb, "parallel_grid": True,
-                              "dofmajor": True, "fold": fold,
-                              "flatten": False})
+            for lb in (8, 9, 10):
+                seeds.append({"log2_block": lb, "log2_warps": 2,
+                              "dofmajor": True, "fold": False})
         try:
             autotune(einsum, impl, db_path=sql_utils.DEFAULT_DB,
                      long_dim_length=E_TUNE, stop_after=budget,

@@ -1,12 +1,13 @@
-"""Breadth pass: tune the P1-P3 DG variants + record fp64 + TCCG facts."""
+"""Breadth pass: record one fact for each P1-P3 DG variant and an fp64 div
+fact on the GPU.
+
+Usage: python scripts/tune_breadth.py
+"""
 import time
-import jax
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 import feinsum_tpu as f
+
+f.enable_persistent_compilation_cache()
 from feinsum_tpu import sql_utils
-from feinsum_tpu.measure import (generate_input_arrays, _apply_layouts, _timeit_in_graph,
-                                 get_giga_op_map, evaluate_giga_op_map)
 
 def record(e, impl, params, label, long_dim=1_000_000):
     t0 = time.time()
@@ -21,7 +22,7 @@ def record(e, impl, params, label, long_dim=1_000_000):
     except Exception as ex:
         print(f"{label}: FAIL {str(ex)[:160]}", flush=True)
 
-P = {"log2_block": 13, "hoist": True, "parallel_grid": True, "dofmajor": True}
+P = {"log2_block": 7, "hoist": True, "dofmajor": True}
 
 def mk_div(ndof, dtype="float32"):
     return f.batched_einsum("es,sij,ej->ei",
@@ -36,6 +37,7 @@ for ndof in (20, 10, 4):
                     f.array("u", ("E", ndof), "float32")),
            "dg_grad_v0.py", P, f"grad ndof={ndof}")
 
-# fp64 div on TPU (XLA emulates f64; validates at 1e-10 vs numpy)
-record(mk_div(35, "float64"), "dg_div_v0.py", P, "div fp64", long_dim=200_000)
+# fp64 div through XLA's native double arithmetic (validates at 1e-12)
+record(mk_div(35, "float64"), "xla_v0.py",
+       {"use_opt_path": True, "precision_idx": 1}, "div fp64")
 print("BREADTH DONE", flush=True)

@@ -8,14 +8,11 @@ Usage: python scripts/tune_ttgt_v1.py [benchmark-index] [seconds-budget]
 """
 import sys
 
-import jax
+import feinsum_tpu as f
+from feinsum_tpu import sql_utils
+from feinsum_tpu.tuning import autotune
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-import feinsum_tpu as f  # noqa: E402
-from feinsum_tpu import sql_utils  # noqa: E402
-from feinsum_tpu.tuning import autotune  # noqa: E402
+f.enable_persistent_compilation_cache()
 
 import logging  # noqa: E402
 

@@ -1,4 +1,4 @@
-"""The fold-8 sublane layout (descriptor.fold_long): stored-layout plumbing,
+"""The folded long-axis layout (descriptor.fold_long): stored-layout plumbing,
 emitter correctness on every suite family, and the InvalidParameterError
 guards.  Runs in Pallas interpret mode on CPU (the POCL-analog path,
 reference test strategy SURVEY.md SS4)."""
@@ -48,7 +48,7 @@ def test_fold_validates_against_numpy(name, hoist):
     ens = suite()[name]
 
     def tr(program):
-        return fused_pallas_program(program, block_long=1024, hoist=hoist,
+        return fused_pallas_program(program, block_long=256, hoist=hoist,
                                     dofmajor=True, fold=True)
     f.validate_batched_einsum_transform(ens, tr, long_dim_length=4096)
 
@@ -57,7 +57,7 @@ def test_fold_output_is_stored_folded():
     ens = suite()["matvec"]
 
     def tr(program):
-        return fused_pallas_program(program, block_long=1024, hoist=False,
+        return fused_pallas_program(program, block_long=256, hoist=False,
                                     dofmajor=True, fold=True)
     prog = tr(f.generate_program(ens))
     from feinsum_tpu.measure import _apply_layouts, generate_input_arrays
@@ -79,14 +79,14 @@ def test_fold_output_is_stored_folded():
 def test_fold_requires_dofmajor():
     ens = suite()["matvec"]
     with pytest.raises(InvalidParameterError):
-        fused_pallas_program(f.generate_program(ens), block_long=1024,
+        fused_pallas_program(f.generate_program(ens), block_long=256,
                              hoist=False, dofmajor=False, fold=True)
 
 
 def test_fold_rejects_non_trailing_long_axis():
     ens = suite()["matvec"]
     prog = f.generate_program(ens).with_descriptor(
-        backend="pallas", fold_long=8, block_long=1024)
+        backend="pallas", fold_long=8, block_long=256)
     # no dof-major layouts: u is stored (E, 20) with the long axis leading
     with pytest.raises(InvalidParameterError):
         f.build_executable(prog, long_dim_length=4096)
@@ -107,7 +107,7 @@ def test_fold_xla_backend_matches():
     ens = suite()["grad"]
 
     def tr(program):
-        p = fused_pallas_program(program, block_long=1024, hoist=True,
+        p = fused_pallas_program(program, block_long=256, hoist=True,
                                  dofmajor=True, fold=True)
         return p.with_descriptor(backend="xla")
     f.validate_batched_einsum_transform(ens, tr, long_dim_length=4096)
@@ -122,7 +122,7 @@ def test_fold_tuning_space_point_roundtrips(tmp_path):
     ens = suite()["matvec"]
     db = str(tmp_path / "t.sqlite")
     space = get_transform_func_from_module_path("mass_v0")
-    params = {"log2_block": 10, "dofmajor": True, "fold": True,
+    params = {"log2_block": 8, "dofmajor": True, "fold": True,
               "parallel_grid": True}
     tr = space.bind_args(ens, **params)
     f.validate_batched_einsum_transform(ens, tr, long_dim_length=4096)
@@ -134,22 +134,21 @@ def test_fold_tuning_space_point_roundtrips(tmp_path):
     f.validate_batched_einsum_transform(ens, q.transform,
                                         long_dim_length=4096)
     # old-style params without 'fold'
-    old = space.bind_args(ens, log2_block=10, dofmajor=True,
+    old = space.bind_args(ens, log2_block=8, dofmajor=True,
                           parallel_grid=True)
     f.validate_batched_einsum_transform(ens, old, long_dim_length=4096)
 
 
 def test_fold_guards_tiny_c_blocks():
-    """blkC below a lane (128) and not spanning the axis must raise
-    InvalidParameterError (Mosaic would reject the block shape)."""
+    """The folded layout is a free view of the dof-major buffer, so a block
+    much shorter than the folded c axis (32 of 1024 here) needs no guard:
+    it builds and matches the oracle."""
     ens = suite()["matvec"]
 
     def tr(program):
         return fused_pallas_program(program, block_long=256, hoist=False,
                                     dofmajor=True, fold=True)
-    prog = tr(f.generate_program(ens))
-    with pytest.raises(InvalidParameterError):
-        f.build_executable(prog, long_dim_length=8192)
+    f.validate_batched_einsum_transform(ens, tr, long_dim_length=8192)
 
 
 def test_unpack_output_inverts_each_contract():
@@ -194,15 +193,6 @@ def test_unpack_output_inverts_each_contract():
         pre_out_layout=((2, 0), (1,)))
     stored = lg3.transpose(2, 0, 1).reshape(20, 6)
     assert np.array_equal(unpack_output(p, stored, (4, 6, 5)), lg3)
-
-    # dd pairs
-    lg64 = rng.random((d, E))
-    hi = lg64.astype(np.float32)
-    lo = (lg64 - hi.astype(np.float64)).astype(np.float32)
-    p = f.generate_program(e).with_descriptor(
-        backend="pallas", dd_pairs=True, out_layout=(1, 0))
-    got = unpack_output(p, np.stack([hi, lo]), (E, d))
-    assert np.allclose(got, lg64.T, rtol=1e-13)
 
     # shape mismatch is an error, not a silent reshape
     import pytest

@@ -23,10 +23,10 @@ def matvec(ndof=20, dtype="float32"):
 def test_lane_pack_validates_against_oracle():
     sp = get_transform_func_from_module_path("mass_v0")
     e = matvec()
-    for kwargs in (dict(dofmajor=False, lane_pack_g=2),
-                   dict(dofmajor=False, lane_pack_g=5),
-                   dict(dofmajor=True, lane_pack_g=5)):
-        tr = sp.bind_args(e, log2_block=10, parallel_grid=True, **kwargs)
+    for kwargs in (dict(dofmajor=False, lane_pack_g=1),
+                   dict(dofmajor=False, lane_pack_g=2),
+                   dict(dofmajor=True, lane_pack_g=2)):
+        tr = sp.bind_args(e, log2_block=6, parallel_grid=True, **kwargs)
         f.validate_batched_einsum_transform(e, tr, long_dim_length=2048)
 
 
@@ -34,12 +34,12 @@ def test_lane_pack_rect_and_transposed_resident():
     sp = get_transform_func_from_module_path("mass_v0")
     rect = f.einsum("ej,ij->ei", f.array("u", ("E", 16), "float32"),
                     f.array("D", (8, 16), "float32"))
-    tr = sp.bind_args(rect, log2_block=10, dofmajor=True, parallel_grid=True,
+    tr = sp.bind_args(rect, log2_block=6, dofmajor=True, parallel_grid=True,
                       lane_pack_g=3)
     f.validate_batched_einsum_transform(rect, tr, long_dim_length=2048)
     tr_ji = f.einsum("ej,ji->ei", f.array("u", ("E", 16), "float32"),
                      f.array("D", (16, 8), "float32"))
-    tr = sp.bind_args(tr_ji, log2_block=10, dofmajor=True,
+    tr = sp.bind_args(tr_ji, log2_block=6, dofmajor=True,
                       parallel_grid=True, lane_pack_g=2)
     f.validate_batched_einsum_transform(tr_ji, tr, long_dim_length=2048)
 
@@ -65,9 +65,9 @@ def test_lane_pack_gates_by_class():
 
 
 def test_lane_pack_rejects_misaligned_g():
-    # g*d must be 8-sublane-aligned: ndof 35 with g=2 -> 70 % 8 != 0
+    # g*d must be 8-aligned: ndof 35 with g=2 -> 70 % 8 != 0
     prog = f.generate_program(matvec(35))
-    with pytest.raises(InvalidParameterError, match="8-sublane"):
+    with pytest.raises(InvalidParameterError, match="8-aligned"):
         rewrite_lane_pack(prog, 2)
     p2, extras = rewrite_lane_pack(prog, 8)      # 280 % 8 == 0
     assert extras["lane_pack"] == 8
@@ -77,11 +77,11 @@ def test_lane_pack_rejects_misaligned_g():
 def test_lane_pack_requires_divisible_length():
     sp = get_transform_func_from_module_path("mass_v0")
     e = matvec()
-    tr = sp.bind_args(e, log2_block=10, dofmajor=False, parallel_grid=True,
-                      lane_pack_g=5)
+    tr = sp.bind_args(e, log2_block=6, dofmajor=False, parallel_grid=True,
+                      lane_pack_g=2)
     prog = tr(f.generate_program(e))
     with pytest.raises(InvalidParameterError, match="divisible"):
-        f.build_executable(prog, long_dim_length=1000)   # 1000 % 32 != 0
+        f.build_executable(prog, long_dim_length=1002)   # 1002 % 4 != 0
 
 
 def test_lane_pack_packed_output_contract():
@@ -93,7 +93,7 @@ def test_lane_pack_packed_output_contract():
 
     sp = get_transform_func_from_module_path("mass_v0")
     e = matvec(8)
-    tr = sp.bind_args(e, log2_block=10, dofmajor=False, parallel_grid=True,
+    tr = sp.bind_args(e, log2_block=6, dofmajor=False, parallel_grid=True,
                       lane_pack_g=4)
     prog = tr(f.generate_program(e))
     E = 1024
@@ -118,13 +118,13 @@ def test_lane_pack_vecmat_variant():
                   f.array("x", (35,), "float32"))
     assert lane_packable(vm) is not None
     assert sp.get_param_space(vm)["lane_pack_g"].high == 5
-    for g, dofmajor in ((3, False), (4, True)):
-        tr = sp.bind_args(vm, log2_block=10, dofmajor=dofmajor,
+    for g, dofmajor in ((3, False), (3, True)):
+        tr = sp.bind_args(vm, log2_block=6, dofmajor=dofmajor,
                           parallel_grid=True, lane_pack_g=g)
         f.validate_batched_einsum_transform(vm, tr, long_dim_length=2048)
     # g must keep the packed output 8-aligned: g=2 -> out dim 2 % 8 != 0
     prog = f.generate_program(vm)
-    with pytest.raises(InvalidParameterError, match="8-sublane"):
+    with pytest.raises(InvalidParameterError, match="8-aligned"):
         rewrite_lane_pack(prog, 2)
 
 
@@ -173,7 +173,7 @@ def _mass(ndof):
 @pytest.mark.parametrize("mk,lg", [
     (lambda: _div(4), 3), (lambda: _div(4, b=1), 4), (lambda: _div(10), 3),
     (lambda: _grad(4), 3), (lambda: _grad(10), 3), (lambda: _curl(4), 3),
-    (lambda: _mass(8), 3), (lambda: _face(35), 3)])
+    (lambda: _mass(8), 3), (lambda: _face(8), 3)])
 def test_lane_pack_dg_validates_against_oracle(mk, lg):
     from feinsum_tpu.tuning.impls._common import lane_pack_dg_applicable
     sp = get_transform_func_from_module_path("dg_div_v0")
@@ -182,7 +182,7 @@ def test_lane_pack_dg_validates_against_oracle(mk, lg):
     # block >= E keeps interpret-mode Pallas at grid=1 (CPU compile-time
     # cliff, CLAUDE.md); the rewrite itself is grid-agnostic
     for dofmajor in (False, True):
-        tr = sp.bind_args(e, log2_block=9, dofmajor=dofmajor,
+        tr = sp.bind_args(e, log2_block=6, dofmajor=dofmajor,
                           parallel_grid=True, lane_pack_g=lg)
         f.validate_batched_einsum_transform(e, tr, long_dim_length=512)
 
@@ -190,7 +190,7 @@ def test_lane_pack_dg_validates_against_oracle(mk, lg):
 def test_lane_pack_dg_composes_with_rowcat():
     sp = get_transform_func_from_module_path("dg_div_v0")
     for e in (_div(4), _curl(4)):
-        tr = sp.bind_args(e, log2_block=9, dofmajor=True,
+        tr = sp.bind_args(e, log2_block=6, dofmajor=True,
                           parallel_grid=True, rowcat=True, lane_pack_g=3)
         f.validate_batched_einsum_transform(e, tr, long_dim_length=512)
 
@@ -200,7 +200,7 @@ def test_lane_pack_dg_rejects_schedule_knobs():
     e = _div(4)
     for bad in (dict(hoist=True), dict(jfold=True), dict(mfold=True)):
         with pytest.raises(InvalidParameterError):
-            sp.bind_args(e, log2_block=9, dofmajor=False,
+            sp.bind_args(e, log2_block=6, dofmajor=False,
                          parallel_grid=True, lane_pack_g=1,
                          **bad)(f.generate_program(f.canonicalize_einsum(e)))
 
@@ -215,7 +215,7 @@ def test_lane_pack_dg_alignment_guard():
 def test_lane_pack_dg_fold_composes():
     sp = get_transform_func_from_module_path("dg_div_v0")
     e = _grad(4)
-    tr = sp.bind_args(e, log2_block=9, dofmajor=True, fold=True,
+    tr = sp.bind_args(e, log2_block=6, dofmajor=True, fold=True,
                       parallel_grid=True, lane_pack_g=3)
     f.validate_batched_einsum_transform(e, tr, long_dim_length=512)
 
@@ -232,8 +232,8 @@ def test_lane_pack_dg_unpack_output_roundtrip():
     g = 8
     prog = f.generate_program(e)
     p2, extras = rewrite_lane_pack_dg(prog, g)
-    p2 = fused_pallas_program(p2, block_long=512, hoist=False,
-                              parallel_grid=True, keep_schedule=True)
+    p2 = fused_pallas_program(p2, block_long=64, hoist=False,
+                              keep_schedule=True)
     p2 = p2.with_descriptor(**extras)
     arrays = generate_input_arrays(e, long_dim_length=512, as_numpy=True)
     fn = f.build_executable(p2, long_dim_length=512)
@@ -258,13 +258,12 @@ def test_lane_pack_dg_validates_on_canonical_forms():
 
     for mk, g in [(lambda: _div(4), 8), (lambda: _grad(4), 8),
                   (lambda: _curl(4), 8), (lambda: _mass(8), 8),
-                  (lambda: _face(35), 8)]:
+                  (lambda: _face(8), 8)]:
         ce = f.canonicalize_einsum(mk())
 
         def tr(p, g=g):
             p2, extras = rewrite_lane_pack_dg(p, g)
-            p2 = fused_pallas_program(p2, block_long=512, hoist=False,
-                                      parallel_grid=True,
+            p2 = fused_pallas_program(p2, block_long=64, hoist=False,
                                       keep_schedule=True)
             return p2.with_descriptor(**extras)
 
@@ -284,58 +283,45 @@ def test_lane_pack_dg_scale_lane_alignment_guard():
 
 
 def test_lane_pack_dg_vmem_guard_matches_live_evidence():
-    """r4 live (div4 sweep): pack points whose PHYSICAL VMEM demand
-    (lane-padded blocks + the 3-step schedule's V/W intermediates) exceeds
-    the point's own vmem_limit_bytes crashed Mosaic deterministically
-    (HTTP 500 across helper ports); points under the limit measured fine.
-    The schedule-aware guard must reject the former as
-    InvalidParameterError (instant) and keep the latter valid."""
+    """Pack points whose largest dot stages more shared memory than a
+    thread block may use (the packed kron resident grows as (g*d)^2) are
+    rejected as InvalidParameterError before any compile; small packs at
+    small blocks stay valid."""
     from feinsum_tpu.tuning import get_transform_func_from_module_path
 
     sp = get_transform_func_from_module_path("dg_div_v0")
     ce = f.canonicalize_einsum(_div(4))
-    base = dict(log2_block=9, dofmajor=False, parallel_grid=True,
-                fold=False, preblock=False, precision_3x=False, hoist=False,
-                jfold=False, mfold=False, prereduce=False, accum_f32=False,
-                host_hoist=True)
-    # (blkc128, vmem_idx, rowcat, lane_pack_g, split_rows, ok?)
-    cases = [(20, 0, True, 5, False, False),    # crashed live
-             (22, 0, True, 5, False, False),    # crashed live
-             (21, 1, True, 5, False, False),    # crashed live
-             (22, 0, True, 4, False, False),    # crashed live (g=16:
-                                                # 48->128 lane padding)
-             (18, 2, True, 5, False, True),     # measured live 5.7e-4
-             (7, 0, False, 5, True, True),      # measured live (split_rows
-                                                # kernels hold 1 row's V/W)
-             (6, 1, True, 5, False, True)]      # measured live 6.08e-4
-    for bc, vi, rc, lg, sr, ok in cases:
-        params = dict(base, blkc128=bc, vmem_idx=vi, rowcat=rc,
-                      lane_pack_g=lg, split_rows=sr)
+    base = dict(dofmajor=False, fold=False, preblock=False,
+                precision_3x=False, hoist=False, jfold=False,
+                prereduce=False, accum_f32=False, host_hoist=True)
+    # (log2_block, rowcat, lane_pack_g, split_rows, ok?)
+    cases = [(10, True, 5, False, False),    # 128-lane packs, 1024 block
+             (10, False, 5, True, False),
+             (4, True, 3, False, True),
+             (6, False, 3, True, True)]
+    for lb, rc, lg, sr, ok in cases:
+        params = dict(base, log2_block=lb, rowcat=rc, lane_pack_g=lg,
+                      split_rows=sr)
         if ok:
             sp(f.generate_program(ce), ce, **params)
         else:
-            with pytest.raises(InvalidParameterError, match="VMEM"):
+            with pytest.raises(InvalidParameterError,
+                               match="shared memory"):
                 sp(f.generate_program(ce), ce, **params)
 
 
 def test_generic_vmem_guard_uses_the_points_own_limit():
-    """r4 live (grad35 sweep): plain (non-pack) points at blkc128>=31 with
-    vmem_idx=0 crashed Mosaic deterministically — the generic guard
-    checked a fixed 100 MiB budget instead of the point's 64 MB limit."""
+    """The plain (non-pack) guard: a grad35 point whose element block
+    stages a (1024 x 64) f32 tile exceeds the per-block shared memory and
+    is rejected; the same point at 256 elements is valid."""
     from feinsum_tpu.tuning import get_transform_func_from_module_path
 
     sp = get_transform_func_from_module_path("dg_grad_v0")
     ce = f.canonicalize_einsum(_grad(35))
-    params = dict(log2_block=8, blkc128=32, dofmajor=True,
-                  parallel_grid=True, fold=False, preblock=True,
-                  precision_3x=True, hoist=True, jfold=False, mfold=False,
+    params = dict(log2_block=10, dofmajor=True, fold=False, preblock=True,
+                  precision_3x=True, hoist=True, jfold=False,
                   prereduce=False, lane_pack_g=0, rowcat=False,
                   split_rows=False, accum_f32=False, host_hoist=False)
-    with pytest.raises(InvalidParameterError, match="VMEM"):
-        sp(f.generate_program(ce), ce, **dict(params, vmem_idx=0))
-    # the same block is legal at the 128 MB limit (if the 100 MiB global
-    # budget also passes it) or rejected by it — but never by a limit the
-    # point didn't choose; grad35's real champion block stays valid:
-    sp(f.generate_program(ce), ce,
-       **dict(params, blkc128=20, vmem_idx=2, hoist=False, mfold=True,
-              fold=True, preblock=False, precision_3x=False))
+    with pytest.raises(InvalidParameterError, match="shared memory"):
+        sp(f.generate_program(ce), ce, **params)
+    sp(f.generate_program(ce), ce, **dict(params, log2_block=8))

@@ -93,8 +93,8 @@ def test_wave_model_uses_db_schedule(tmp_path):
 def test_wave_model_strips_storage_layouts_from_db_schedules(tmp_path):
     """Archive champions may carry fold_long/preblock_args storage choices;
     the model's state contract is plain dof-major, so those must reset (a
-    retrieved fold schedule once broke the wave example on TPU with a
-    block-rank mismatch)."""
+    retrieved fold schedule once broke the wave example with a block-rank
+    mismatch)."""
     import jax
 
     from feinsum_tpu import sql_utils
@@ -112,7 +112,7 @@ def test_wave_model_strips_storage_layouts_from_db_schedules(tmp_path):
     op = WaveOperator3D(ndof=10, nfacedof=6, db_path=db)
     desc = op._programs["grad"].descriptor
     assert desc.fold_long == 1 and desc.preblock_args == ()
-    assert desc.precision == "bf16_3x"    # the MXU choice carries over
+    assert desc.precision == "tf32_3x"    # the dot precision carries over
     step = jax.jit(op.make_step(512, dt=1e-3))
     state, geom = make_wave_state(512, ndof=10, nfacedof=6)
     out = step(state, geom)
@@ -237,7 +237,7 @@ def test_maxwell_model_uses_db_schedule(tmp_path):
         runtime_in_sec=1e-4, device=None, db_path=db, long_dim_length=1024)
     op = MaxwellOperator3D(ndof=10, db_path=db)
     assert op._program.descriptor.block_long == 512
-    assert op._program.descriptor.precision == "bf16_3x"
+    assert op._program.descriptor.precision == "tf32_3x"
 
 
 def test_row_sharding_matches_oracle():

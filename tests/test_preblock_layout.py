@@ -20,7 +20,7 @@ def test_preblock_small_args_selection():
     assert preblock_small_args(s["grad"]) == ("J",)
     assert preblock_small_args(s["mass"]) == ("jac",)
     assert preblock_small_args(s["face"]) == ("Fj",)
-    # every sublane row of u/copy operands is wide (35/20) or 8-divisible:
+    # every row of u/copy operands is wide (35/20) or 8-divisible:
     # nothing qualifies
     assert preblock_small_args(s["matvec"]) == ()
     assert preblock_small_args(s["copy"]) == ()
@@ -32,7 +32,7 @@ def test_preblock_validates_against_numpy(name, fold):
     ens = suite()[name]
 
     def tr(program):
-        return fused_pallas_program(program, block_long=1024, hoist=True,
+        return fused_pallas_program(program, block_long=256, hoist=True,
                                     dofmajor=True, fold=fold, preblock=True)
     f.validate_batched_einsum_transform(ens, tr, long_dim_length=4096)
 
@@ -50,7 +50,7 @@ def test_preblock_pads_partial_tails(length):
         _apply_layouts, _numpy_oracle, generate_input_arrays)
 
     ens = suite()["div"]
-    prog = fused_pallas_program(f.generate_program(ens), block_long=1024,
+    prog = fused_pallas_program(f.generate_program(ens), block_long=256,
                                 hoist=True, dofmajor=True, preblock=True)
     raw = generate_input_arrays(ens, long_dim_length=length, as_numpy=True)
     arrays = _apply_layouts(prog, {k: np.asarray(v) for k, v in raw.items()})
@@ -72,16 +72,16 @@ def test_preblock_storage_shape_and_semantics():
     ens = suite()["mass"]
 
     def tr(program):
-        return fused_pallas_program(program, block_long=1024, hoist=False,
+        return fused_pallas_program(program, block_long=256, hoist=False,
                                     dofmajor=True, preblock=True)
     prog = tr(f.generate_program(ens))
     from feinsum_tpu.measure import _apply_layouts, generate_input_arrays
     E = 4096
     arrays = _apply_layouts(prog, generate_input_arrays(
         ens, long_dim_length=E))
-    # jac (E,) -> (nb=4, 8, 128): block g holds elements [g*1024, (g+1)*1024)
-    assert arrays["jac"].shape == (4, 8, 128)
-    flat = np.asarray(arrays["jac"]).reshape(4 * 1024)
+    # jac (E,) -> (nb=16, 8, 32): block g holds elements [g*256, (g+1)*256)
+    assert arrays["jac"].shape == (16, 8, 32)
+    flat = np.asarray(arrays["jac"]).reshape(16 * 256)
     raw = generate_input_arrays(ens, long_dim_length=E, as_numpy=True)
     np.testing.assert_array_equal(flat, raw["jac"])
     # executable consumes the pre-blocked jac and matches numpy
@@ -97,14 +97,14 @@ def test_preblock_storage_shape_and_semantics():
 def test_preblock_requires_dofmajor():
     with pytest.raises(InvalidParameterError):
         fused_pallas_program(f.generate_program(suite()["div"]),
-                             block_long=1024, hoist=True,
+                             block_long=256, hoist=True,
                              dofmajor=False, preblock=True)
 
 
 def test_preblock_rejects_unqualified_einsums():
     with pytest.raises(InvalidParameterError):
         fused_pallas_program(f.generate_program(suite()["copy"]),
-                             block_long=1024, hoist=False,
+                             block_long=256, hoist=False,
                              dofmajor=True, preblock=True)
 
 
@@ -115,23 +115,16 @@ def test_preblock_rejects_xla_backend():
         f.build_executable(prog, long_dim_length=4096)
 
 
-def test_preblock_rejects_flatten():
-    prog = f.generate_program(suite()["copy"]).with_descriptor(
-        backend="pallas", flatten=True, preblock_args=("A",))
-    with pytest.raises(InvalidParameterError):
-        f.build_executable(prog, long_dim_length=4096)
-
-
 def test_preblock_rejects_unknown_and_nontrailing_args():
     base = fused_pallas_program(f.generate_program(suite()["div"]),
-                                block_long=1024, hoist=True,
+                                block_long=256, hoist=True,
                                 dofmajor=True)
     with pytest.raises(InvalidParameterError):
         f.build_executable(base.with_descriptor(preblock_args=("nope",)),
                            long_dim_length=4096)
     # long axis not stored trailing (no dof-major perm on Jx)
     plain = f.generate_program(suite()["div"]).with_descriptor(
-        backend="pallas", block_long=1024, preblock_args=("Jx",))
+        backend="pallas", block_long=256, preblock_args=("Jx",))
     with pytest.raises(InvalidParameterError):
         f.build_executable(plain, long_dim_length=4096)
 
@@ -145,7 +138,7 @@ def test_preblock_tuning_space_point_roundtrips(tmp_path):
     ens = suite()["div"]
     db = str(tmp_path / "t.sqlite")
     space = get_transform_func_from_module_path("dg_div_v0")
-    params = {"log2_block": 10, "dofmajor": True, "fold": False,
+    params = {"log2_block": 8, "dofmajor": True, "fold": False,
               "preblock": True, "precision_3x": True, "hoist": True,
               "parallel_grid": True}
     tr = space.bind_args(ens, **params)
@@ -158,6 +151,6 @@ def test_preblock_tuning_space_point_roundtrips(tmp_path):
     f.validate_batched_einsum_transform(ens, q.transform,
                                         long_dim_length=4096)
     # old-style params without the new keys
-    old = space.bind_args(ens, log2_block=10, dofmajor=True, hoist=True,
+    old = space.bind_args(ens, log2_block=8, dofmajor=True, hoist=True,
                           parallel_grid=True)
     f.validate_batched_einsum_transform(ens, old, long_dim_length=4096)

@@ -1,5 +1,5 @@
 """rowcat (descriptor.rowcat): merge batch rows sharing every resident
-operand into ONE row over a b*E-long axis — identical traffic and MXU
+operand into ONE row over a b*E-long axis — identical traffic and dot
 work, 1/b the grid steps (the small-ndof per-block-overhead amortizer)."""
 
 import jax.numpy as jnp
@@ -32,7 +32,7 @@ def make_div(ndof=4):
 def test_rowcat_validates(kwargs):
     sp = get_transform_func_from_module_path("dg_div_v0")
     div = make_div()
-    tr = sp.bind_args(div, log2_block=10, parallel_grid=True, rowcat=True,
+    tr = sp.bind_args(div, log2_block=8, parallel_grid=True, rowcat=True,
                       **kwargs)
     f.validate_batched_einsum_transform(div, tr, long_dim_length=1024)
 
@@ -69,7 +69,7 @@ def test_rowcat_champion_replays_through_apply(tmp_path):
 
     db = str(tmp_path / "scratch.sqlite")
     div = make_div(4)
-    params = {"log2_block": 10, "blkc128": 0, "dofmajor": True,
+    params = {"log2_block": 8, "blkc128": 0, "dofmajor": True,
               "fold": False, "preblock": False, "precision_3x": False,
               "hoist": False, "jfold": False, "mfold": False,
               "prereduce": False, "lane_pack_g": 0, "rowcat": True,
@@ -77,7 +77,7 @@ def test_rowcat_champion_replays_through_apply(tmp_path):
               "accum_f32": False, "host_hoist": True}
     sql_utils.record_facts(div, transform_id="dg_div_v0.py",
                            transform_params=params, runtime_in_sec=1e-4,
-                           device=f.FakeDevice("TPU v5 lite"), db_path=db,
+                           device=f.FakeDevice("NVIDIA H100 80GB HBM3"), db_path=db,
                            long_dim_length=1024)
 
     rng = np.random.default_rng(9)
@@ -93,7 +93,7 @@ def test_rowcat_champion_replays_through_apply(tmp_path):
 
     args = [Jx, Jy, Jz, R, ux, uy, uz]
     fn2 = f.compile_fn_with_archive(user, args, db_path=db,
-                                    device=f.FakeDevice("TPU v5 lite"),
+                                    device=f.FakeDevice("NVIDIA H100 80GB HBM3"),
                                     long_dim_length=500)
     assert fn2.plans[0][2].descriptor.rowcat == 3
     got, ref = fn2(*args), user(*args)
@@ -112,7 +112,7 @@ def test_rowcat_lane_pack_composes():
           f.array("D", (4, 4), "float32")]
          for u in ("ux", "uy")])
     sp = get_transform_func_from_module_path("mass_v0")
-    tr = sp.bind_args(mv, log2_block=10, dofmajor=True, parallel_grid=True,
+    tr = sp.bind_args(mv, log2_block=8, dofmajor=True, parallel_grid=True,
                       rowcat=True, lane_pack_g=2)
     f.validate_batched_einsum_transform(mv, tr, long_dim_length=1024)
     prog = tr(f.generate_program(f.canonicalize_einsum(mv)))
